@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of npge_tpu_torch on one NVIDIA GPU: the default build, end to
-end, through the hand-written CUDA kernel.
+"""Smoke run of npge_tpu_torch on one NVIDIA GPU: the default build, the
+deep IsPangenome probe, every CLI verb and k = 32, end to end, through the
+hand-written CUDA kernel.
 
     python3 chip_smoke.py
 
@@ -13,19 +14,35 @@ Phases (each prints its lines; any failure exits non-zero):
   4. the 5 x 20 kb circular world with inversions: blockset hash, the
      IsPangenome check and kernel launches;
   5. the 17 x 1 Mbp world with the default config: stage table, wall,
-     canonical blockset hash and the IsPangenome check.
+     canonical blockset hash and the IsPangenome check;
+  6. the deep IsPangenome probe on that blockset, called directly (no
+     build-time memo): its verdict against the reference's, its wall and
+     its scan and extension seconds; then the probe on a 3 x 6 kb build
+     without re-seeding, where it must find the reference's 80 hits;
+  7. the CLI on the 5 x 20 kb world in a temporary work dir: make-pangenome,
+     hash, run MakePangenome, check --deep (the probe; then the build-time
+     memo and, with a changed config, the probe again after a build that
+     records its proof), run Pangenome, processors, post-processing, report
+     and info;
+  8. a k = 32 build of a small linear world against the reference's hash.
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-lists each kernel with its launches in phase 5 and its times.
+lists each kernel with its launches in phase 5 (and phases 7 and 8) and
+its times.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import importlib.util
+import io
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -36,6 +53,21 @@ SMALL_HASH = 14129187163991902977
 # canonical blockset hash of the reference build
 BIG_CODES_SHA256 = "e71b5800b914d646423518ffeed8ba4428c170b869fedb5f01a46bb4b7a82208"
 BIG_HASH = 0x3D5ECC8CF4FD2751
+# the reference's deep IsPangenome report (ok, new_hits, messages) on the
+# canonical 17 x 1 Mbp blockset, from the JAX package on the CPU
+BIG_DEEP = (True, 0, [])
+# 3 x 6 kb linear world built without re-seeding (phase 6): the reference's
+# hash and its deep report, which finds improving hits
+HITS_HASH = 0xE938397915E6DE11
+HITS_DEEP = (False, 80, ["re-seeding finds improving hits (80 candidates)"])
+# 3 x 5 kb linear world built at k = 32 (phase 8): the reference's hash
+K32_HASH = 0x53EE0976D143B7A1
+K32_BLOCKS = 16
+# the 5 x 20 kb world's config, as overrides of the default config
+SMALL_CFG = {
+    "ANCHOR_SIZE": 17, "MINIMIZER_WINDOW": 8, "MIN_LENGTH": 60,
+    "MIN_END": 3, "MAX_LOOPS": 2, "GAPPED_FLANK": 64,
+}
 
 
 def fail(msg: str) -> None:
@@ -172,21 +204,23 @@ def phase_kernel() -> dict:
     return result
 
 
-def phase_small_world() -> None:
-    from npge_tpu_torch import (
-        blockset_hash, build_pangenome, check_is_pangenome, default_config,
-        synthetic_arena,
-    )
-    from npge_tpu_torch.ops import sw
+def small_world():
+    from npge_tpu_torch import synthetic_arena
 
-    arena = synthetic_arena(
+    return synthetic_arena(
         n_genomes=5, length=20_000, seed=11, sub_rate=0.004,
         indel_rate=0.0008, n_inversions=2, circular=True,
     )
-    cfg = default_config().replace(
-        ANCHOR_SIZE=17, MINIMIZER_WINDOW=8, MIN_LENGTH=60, MIN_END=3,
-        MAX_LOOPS=2, GAPPED_FLANK=64,
+
+
+def phase_small_world() -> None:
+    from npge_tpu_torch import (
+        blockset_hash, build_pangenome, check_is_pangenome, default_config,
     )
+    from npge_tpu_torch.ops import sw
+
+    arena = small_world()
+    cfg = default_config().replace(**SMALL_CFG)
     sw.SW_LAUNCHES = 0
     t0 = time.perf_counter()
     bs, _ = build_pangenome(arena, cfg, "cuda")
@@ -204,8 +238,9 @@ def phase_small_world() -> None:
         fail("small world build launched no SW kernel")
 
 
-def phase_big_world() -> int:
-    """Returns the SW kernel launches of this build."""
+def phase_big_world():
+    """Returns the SW kernel launches of this build, the canonical
+    blockset and its config."""
     import torch
 
     from npge_tpu_torch import (
@@ -246,7 +281,175 @@ def phase_big_world() -> int:
         fail(f"17x1Mbp IsPangenome: {rep.messages}")
     if launches <= 0:
         fail("17x1Mbp build launched no SW kernel")
+    return launches, bs, cfg
+
+
+def phase_deep(bs, cfg) -> None:
+    import torch
+
+    from npge_tpu_torch import check_is_pangenome
+    from npge_tpu_torch.algo.pangenome import StageTimings
+
+    tm = StageTimings()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = check_is_pangenome(bs, cfg, deep=True, device="cuda", timings=tm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    books = ", ".join(f"{k} {v:.3f} s" for k, v in tm.seconds.items())
+    print(f"[deep] 17x1Mbp deep probe at k={cfg.MIN_ANCHOR_SIZE}: ok {rep.ok}, "
+          f"new_hits {rep.new_hits}, wall {wall:.3f} s ({books}; "
+          f"extend cells {tm.counters.get('deep.extend_cells', 0)})",
+          flush=True)
+    got = (rep.ok, rep.new_hits, rep.messages)
+    if got != BIG_DEEP:
+        fail(f"deep probe {got} != the reference's {BIG_DEEP}")
+    if tm.counters.get("deep.extend_cells", 0) <= 0:
+        fail("17x1Mbp deep probe extended nothing")
+
+
+def phase_deep_hits() -> None:
+    """The deep probe on a build without re-seeding, where it must find the
+    reference's improving hits on the card."""
+    from npge_tpu_torch import (
+        blockset_hash, build_pangenome, check_is_pangenome, default_config,
+        synthetic_arena,
+    )
+    from npge_tpu_torch.algo.pangenome import StageTimings
+
+    arena = synthetic_arena(
+        n_genomes=3, length=6000, seed=4, sub_rate=0.02, indel_rate=0.002,
+        n_inversions=1,
+    )
+    cfg = default_config().replace(
+        ANCHOR_SIZE=31, MIN_LENGTH=60, MIN_END=3, GAPPED_EXTEND=False,
+        MAX_LOOPS=0,
+    )
+    bs, _ = build_pangenome(arena, cfg, "cuda")
+    h = blockset_hash(bs)
+    tm = StageTimings()
+    t0 = time.perf_counter()
+    rep = check_is_pangenome(bs, cfg, deep=True, device="cuda", timings=tm)
+    wall = time.perf_counter() - t0
+    got = (rep.ok, rep.new_hits, rep.messages)
+    print(f"[deep-hits] 3x6kb without re-seeding: hash {h:#x}, ok {rep.ok}, "
+          f"new_hits {rep.new_hits}, wall {wall:.3f} s (extend cells "
+          f"{tm.counters.get('deep.extend_cells', 0)})", flush=True)
+    if h != HITS_HASH:
+        fail(f"3x6kb build hash {h:#x} != the reference's {HITS_HASH:#x}")
+    if got != HITS_DEEP:
+        fail(f"3x6kb deep probe {got} != the reference's {HITS_DEEP}")
+
+
+def phase_cli() -> int:
+    """Every verb of the port's CLI on the 5 x 20 kb world; returns the SW
+    kernel launches of the phase."""
+    import torch
+
+    from npge_tpu_torch import BlockSet, save_stage
+    from npge_tpu_torch.cli import main as cli
+    from npge_tpu_torch.ops import sw
+
+    opts = [a for k, v in SMALL_CFG.items() for a in ("-o", f"{k}={v}")]
+    work = tempfile.mkdtemp(prefix="npge_smoke_")
+
+    def run(*argv) -> tuple[str, str]:
+        out, err = io.StringIO(), io.StringIO()
+        code = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            try:
+                cli([*argv, "-w", work])
+            except SystemExit as e:
+                code = e.code
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        label = " ".join(argv).replace(" ".join(opts), "<opts>")
+        print(f"[cli] {label}: exit {code}, wall {wall:.3f} s", flush=True)
+        if code not in (0, None):
+            fail(f"cli {argv}: exit {code}\n{out.getvalue()[-2000:]}"
+                 f"{err.getvalue()[-2000:]}")
+        return out.getvalue(), err.getvalue()
+
+    try:
+        save_stage(work, "input", BlockSet(small_world(), []))
+        sw.SW_LAUNCHES = 0
+        out, _ = run("make-pangenome", "--device", "cuda", *opts)
+        if '"is_pangenome": true' not in out:
+            fail(f"cli make-pangenome: {out}")
+        out, _ = run("hash")
+        if out.strip() != f"{SMALL_HASH:016x}":
+            fail(f"cli hash {out.strip()} != {SMALL_HASH:016x}")
+        run("run", "MakePangenome", "--device", "cuda", "--stage-name",
+            "again", *opts)
+        out, _ = run("hash", "--stage", "again")
+        if out.strip() != f"{SMALL_HASH:016x}":
+            fail(f"cli run MakePangenome hash {out.strip()} != {SMALL_HASH:016x}")
+        # this build ends at MAX_LOOPS before its k reaches MIN_ANCHOR_SIZE,
+        # so it records no proof and the deep check runs the probe
+        out, err = run("check", "--deep", "--device", "cuda", *opts)
+        if not out.startswith("OK") or "reusing" in err:
+            fail(f"cli check --deep: {out}{err}")
+        # a build that reaches k = MIN_ANCHOR_SIZE records its proof: the
+        # deep check reuses it, and with a changed config runs the probe
+        loops4 = [*opts, "-o", "MAX_LOOPS=4"]
+        run("make-pangenome", "--device", "cuda", *loops4)
+        out, err = run("check", "--deep", "--device", "cuda", *loops4)
+        if not out.startswith("OK") or "reusing build-time proof" not in err:
+            fail(f"cli check --deep did not reuse the build's proof: {out}{err}")
+        out, err = run("check", "--deep", "--device", "cuda", *loops4,
+                       "-o", "MAX_LOOPS=5")
+        if not out.startswith("OK") or "reusing" in err:
+            fail(f"cli check --deep with a changed config: {out}{err}")
+        out, _ = run("run", "Pangenome", "--device", "cuda", *opts)
+        print(f"[cli] {out.strip()}", flush=True)
+        out, _ = run("processors")
+        if "MakePangenome" not in out.split() or len(out.split()) != 21:
+            fail(f"cli processors: {out.split()}")
+        run("post-processing")
+        run("report")
+        out, _ = run("info")
+        missing = [f for f in ("blocks.tsv", "consensus_tree.nwk",
+                               "report.html", "stage.bs")
+                   if not os.path.exists(os.path.join(work, f))]
+        if missing or not out.strip():
+            fail(f"cli outputs missing: {missing}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = sw.SW_LAUNCHES
+    print(f"[cli] every verb ran; sw launches {launches}", flush=True)
+    if launches <= 0:
+        fail("the CLI phase launched no SW kernel")
     return launches
+
+
+def phase_k32() -> int:
+    """Returns the SW kernel launches of the k = 32 build."""
+    from npge_tpu_torch import (
+        blockset_hash, build_pangenome, default_config, synthetic_arena,
+    )
+    from npge_tpu_torch.ops import sw
+
+    arena = synthetic_arena(
+        n_genomes=3, length=5000, seed=4, sub_rate=0.006, indel_rate=0.001,
+        n_inversions=1,
+    )
+    cfg = default_config().replace(
+        ANCHOR_SIZE=32, MIN_LENGTH=60, MIN_END=3, GAPPED_FLANK=64,
+        MAX_LOOPS=2,
+    )
+    sw.SW_LAUNCHES = 0
+    t0 = time.perf_counter()
+    bs, _ = build_pangenome(arena, cfg, "cuda")
+    wall = time.perf_counter() - t0
+    h = blockset_hash(bs)
+    print(f"[k32] 3x5kb linear at k=32: {len(bs.blocks)} blocks, hash "
+          f"{h:#x}, sw launches {sw.SW_LAUNCHES}, wall {wall:.3f} s",
+          flush=True)
+    if (h, len(bs.blocks)) != (K32_HASH, K32_BLOCKS):
+        fail(f"k=32 build {h:#x} ({len(bs.blocks)} blocks) != "
+             f"{K32_HASH:#x} ({K32_BLOCKS} blocks)")
+    return sw.SW_LAUNCHES
 
 
 def main() -> None:
@@ -258,7 +461,11 @@ def main() -> None:
     phase_build()
     kern = phase_kernel()
     phase_small_world()
-    launches = phase_big_world()
+    launches, bs, cfg = phase_big_world()
+    phase_deep(bs, cfg)
+    phase_deep_hits()
+    launches_cli = phase_cli()
+    launches_k32 = phase_k32()
     if "jax" in sys.modules:
         fail("jax was imported")
     kernels = [{
@@ -267,6 +474,8 @@ def main() -> None:
         "source": "npge_tpu_torch/csrc/sw_xdrop.cu",
         "replaces": "npge_tpu/ops/sw.py:74",
         "launches": launches,
+        "launches_cli": launches_cli,
+        "launches_k32": launches_k32,
         **kern,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,17 +10,22 @@ few host functions that live in jax modules. It never imports ``jax``.
   - ``ops``     device compute: k-mer scan (``kmers``), gapless lockstep
                 extension (``extend``), banded-SW x-drop (``sw``, a CUDA
                 kernel for sm_90a, built at first use by ``_build``)
-  - ``algo``    the stages of the default ``make-pangenome`` build
-  - ``cli``     ``prepare`` and ``make-pangenome``
+  - ``algo``    the stages of the default ``make-pangenome`` build and the
+                IsPangenome check with its deep probe
+  - ``meta``    the processor registry (``run``, ``processors``, ``shell``)
+  - ``cli``     every verb of ``npge_tpu.cli``, with ``--device``
 """
 
 __version__ = "0.1.0"
 
-# the reference's host objects the port takes as they are, and the build
-from npge_tpu.algo.is_pangenome import check_is_pangenome  # noqa: E402,F401
+# the reference's host objects the port takes as they are, the build and
+# the check
 from npge_tpu.config import Config, default_config  # noqa: E402,F401
+from npge_tpu.io.checkpoint import save_stage  # noqa: E402,F401
 from npge_tpu.model.arena import GenomeArena  # noqa: E402,F401
+from npge_tpu.model.blocks import BlockSet  # noqa: E402,F401
 from npge_tpu.model.hashing import blockset_hash  # noqa: E402,F401
 from npge_tpu.native import have_native  # noqa: E402,F401
 from npge_tpu.util.synthetic import synthetic_arena  # noqa: E402,F401
+from npge_tpu_torch.algo.is_pangenome import check_is_pangenome  # noqa: E402,F401
 from npge_tpu_torch.algo.pangenome import build_pangenome  # noqa: E402,F401

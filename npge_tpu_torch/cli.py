@@ -1,36 +1,55 @@
-"""npge_tpu_torch CLI — the default pangenome build on an explicit device.
+"""npge_tpu_torch CLI — every verb of ``npge_tpu.cli`` on an explicit device.
 
     python -m npge_tpu_torch.cli prepare --fasta a.fa b.fa [--genomes G.tsv] -w WORK
+    python -m npge_tpu_torch.cli examine -w WORK
     python -m npge_tpu_torch.cli make-pangenome -w WORK [--device cuda|cpu]
-        [-o KEY=VALUE ...] [--timing]
+        [-o KEY=VALUE ...] [--config C.json] [--timing]
+    python -m npge_tpu_torch.cli check -w WORK [--deep] [--device cuda|cpu]
+    python -m npge_tpu_torch.cli post-processing|info|hash|report -w WORK
+    python -m npge_tpu_torch.cli run NAME|script.py -w WORK [--stage-name S]
+    python -m npge_tpu_torch.cli processors|shell|warmup ...
 
-``prepare`` is the reference's own (host-only) verb. ``make-pangenome``
-builds on ``--device`` (default ``cuda``) and exits non-zero when that
-device is unavailable; it writes ``pangenome.bs`` and ``pangenome.json``
-like the reference and runs the (non-deep) IsPangenome check.
+The options are the reference's, except that ``--platform`` is
+``--device``: ``cuda`` (the default) or ``cpu``. A verb that computes on
+the device exits non-zero when that device is unavailable; nothing falls
+back to the CPU unless ``--device cpu`` asks for it. The host verbs
+(``prepare``, ``examine``, ``info``, ``hash``, ``post-processing``,
+``report``) are the reference's own functions.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
-from npge_tpu.cli import _load_cfg, cmd_prepare
+from npge_tpu.cli import (
+    _load_cfg, _load_input, cmd_examine, cmd_hash, cmd_info,
+    cmd_post_processing, cmd_prepare, cmd_report,
+)
 from npge_tpu.model.hashing import blockset_hash
+
+
+def _device(args):
+    """The torch device of ``--device``; exits non-zero when it is not
+    available."""
+    from npge_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(args.device)
+    except (RuntimeError, ValueError) as e:
+        raise SystemExit(f"{args.cmd}: {e}")
 
 
 # mirrors npge_tpu/cli.py:cmd_make_pangenome
 def cmd_make_pangenome(args) -> None:
-    from npge_tpu.algo.is_pangenome import check_is_pangenome
     from npge_tpu.algo.reports import json_line
     from npge_tpu.io.checkpoint import load_stage, save_stage
+    from npge_tpu_torch.algo.is_pangenome import check_is_pangenome
     from npge_tpu_torch.algo.pangenome import build_pangenome
-    from npge_tpu_torch.device import resolve_device
 
-    try:
-        dev = resolve_device(args.device)
-    except (RuntimeError, ValueError) as e:
-        raise SystemExit(f"make-pangenome: {e}")
+    dev = _device(args)
     cfg = _load_cfg(args)
     src = load_stage(args.workdir, "input")
     if src is None:
@@ -60,33 +79,202 @@ def cmd_make_pangenome(args) -> None:
         print("WARNING: IsPangenome checks failed:", rep.messages, file=sys.stderr)
 
 
+# mirrors npge_tpu/cli.py:cmd_check
+def cmd_check(args) -> None:
+    from npge_tpu_torch.algo.is_pangenome import check_is_pangenome
+
+    deep = args.deep
+    dev = _device(args) if deep else None
+    cfg = _load_cfg(args)
+    bs = _load_input(args.workdir, args.stage)
+    if deep:
+        # the deep probe is a pure function of (blockset, cfg): reuse the
+        # verdict the construction loop proved at build time when the
+        # loaded blockset hash and config match the recorded memo
+        memo = None
+        meta_path = os.path.join(args.workdir, f"{args.stage or 'pangenome'}.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as fh:
+                memo = json.load(fh).get("deep_probe")
+        if (
+            memo
+            and memo.get("ok")
+            and memo.get("cfg") == cfg.to_json()
+            and memo.get("blockset_hash") == f"{blockset_hash(bs):016x}"
+        ):
+            deep = False
+            print(
+                "deep probe: reusing build-time proof "
+                "(blockset hash and config unchanged)",
+                file=sys.stderr,
+            )
+    rep = check_is_pangenome(bs, cfg, deep=deep, device=dev)
+    print("OK" if rep.ok else "FAIL")
+    for m in rep.messages:
+        print(" -", m)
+    sys.exit(0 if rep.ok else 1)
+
+
+# mirrors npge_tpu/cli.py:cmd_run
+def cmd_run(args) -> None:
+    """Run a named processor/pipe or a Python script with
+    meta/bs/cfg/device in scope."""
+    from npge_tpu.io.checkpoint import save_stage
+    from npge_tpu_torch import meta
+
+    dev = _device(args)
+    cfg = _load_cfg(args)
+    bs = _load_input(args.workdir, args.stage)
+    if args.name.endswith(".py"):
+        bs = meta.run_script(args.name, bs, cfg, dev)
+    else:
+        bs = meta.get(args.name)(bs, cfg, dev)
+    path = save_stage(args.workdir, args.stage_name, bs)
+    print(f"{args.name} -> {len(bs.blocks)} blocks -> {path}")
+
+
+def cmd_processors(args) -> None:
+    from npge_tpu_torch import meta
+
+    for n in meta.names():
+        print(n)
+
+
+# mirrors npge_tpu/cli.py:cmd_shell
+def cmd_shell(args) -> None:
+    """Interactive console with meta/bs/cfg/device in scope."""
+    import code
+
+    from npge_tpu_torch import meta
+
+    dev = _device(args)
+    cfg = _load_cfg(args)
+    bs = _load_input(args.workdir, args.stage)
+    banner = (
+        f"npge-tpu-torch shell — bs: {len(bs.blocks)} blocks over "
+        f"{bs.arena.n_seqs} sequences on {dev}; objects: meta, bs, cfg, "
+        f"device\nprocessors: {', '.join(meta.names())}"
+    )
+    code.interact(
+        banner=banner,
+        local={"meta": meta, "bs": bs, "cfg": cfg, "device": dev},
+    )
+
+
+def cmd_warmup(args) -> None:
+    """Build the kernel library (nvcc, once per checkout) and run one
+    synthetic build of the intended size on the device, so the first real
+    run starts with the library built and the CUDA context warm."""
+    import time
+
+    from npge_tpu.util.synthetic import synthetic_arena
+    from npge_tpu_torch.algo.pangenome import build_pangenome
+
+    dev = _device(args)
+    lib = "no kernel library on the CPU (plain torch versions)"
+    if dev.type == "cuda":
+        from npge_tpu_torch.ops import _build
+
+        _build.load_library()
+        lib = f"kernel library {_build.library_path()}"
+    per = max(1000, args.size // max(1, args.n))
+    arena = synthetic_arena(
+        n_genomes=args.n, length=per, seed=0,
+        sub_rate=0.002, indel_rate=0.0001,
+    )
+    t0 = time.perf_counter()
+    bs, _ = build_pangenome(arena, _load_cfg(args), dev)
+    print(
+        f"warmup: {args.n}x{per} bp built on {dev} in "
+        f"{time.perf_counter() - t0:.1f}s ({len(bs.blocks)} blocks); {lib}"
+    )
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="npge-tpu-torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
+    def common(sp, cfg_opts=True):
+        sp.add_argument("-w", "--workdir", default="npge-work")
+        sp.add_argument("--stage", help="load this stage's .bs instead of pangenome/input")
+        sp.add_argument(
+            "--device", default="cuda",
+            help="device for compute verbs: cuda (default; fails without a "
+                 "GPU) or cpu",
+        )
+        if cfg_opts:
+            sp.add_argument("--config", help="JSON config file")
+            sp.add_argument(
+                "-o", "--opt", action="append",
+                help="override a global option, e.g. -o MIN_LENGTH=100",
+            )
+
     sp = sub.add_parser("prepare", help="ingest FASTA genomes (GetData+Prepare)")
-    sp.add_argument("-w", "--workdir", default="npge-work")
     sp.add_argument("--fasta", nargs="+")
     sp.add_argument("--genomes", help="genomes.tsv accession renaming table")
     sp.add_argument("--data-dir", help="directory with <accession>.fa files")
-    sp.set_defaults(fn=cmd_prepare, download=False)
+    sp.add_argument(
+        "--download", action="store_true",
+        help="fetch missing accessions over HTTP into --data-dir "
+             "(GetData; ENA by default, NPGE_FASTA_URL template override)",
+    )
+    common(sp, cfg_opts=False)
+    sp.set_defaults(fn=cmd_prepare)
 
-    sp = sub.add_parser("make-pangenome", help="build the pangenome blockset")
-    sp.add_argument("-w", "--workdir", default="npge-work")
-    sp.add_argument(
-        "--device", default="cuda",
-        help="device for the build: cuda (default; fails without a GPU) "
-             "or cpu",
+    for name, fn in [
+        ("examine", cmd_examine),
+        ("make-pangenome", cmd_make_pangenome),
+        ("post-processing", cmd_post_processing),
+        ("info", cmd_info),
+        ("check", cmd_check),
+        ("hash", cmd_hash),
+    ]:
+        sp = sub.add_parser(name)
+        common(sp)
+        if name == "make-pangenome":
+            sp.add_argument("--verbose", action="store_true")
+            sp.add_argument("--timing", action="store_true",
+                            help="print per-stage wall times")
+        if name == "check":
+            sp.add_argument("--deep", action="store_true",
+                            help="also verify re-seeding finds no new hits")
+        if name == "post-processing":
+            sp.add_argument(
+                "--target", action="append", metavar="FILE=STREAM",
+                help="repoint an output, e.g. info.txt=:stdout or "
+                     "blocks.tsv=:mybuf (named in-memory stream)",
+            )
+        sp.set_defaults(fn=fn)
+
+    sp = sub.add_parser("run", help="run a named processor/pipe or script")
+    sp.add_argument("name", help="processor name or .py script path")
+    sp.add_argument("--stage-name", default="stage")
+    common(sp)
+    sp.set_defaults(fn=cmd_run)
+
+    sp = sub.add_parser("processors", help="list registered processors")
+    common(sp, cfg_opts=False)
+    sp.set_defaults(fn=cmd_processors)
+
+    sp = sub.add_parser("report", help="write a self-contained HTML report")
+    common(sp)
+    sp.set_defaults(fn=cmd_report)
+
+    sp = sub.add_parser("shell", help="interactive console (meta/bs/cfg/device)")
+    common(sp)
+    sp.set_defaults(fn=cmd_shell)
+
+    sp = sub.add_parser(
+        "warmup",
+        help="build the kernel library and run one synthetic build of the "
+             "intended size on the device",
     )
-    sp.add_argument("--config", help="JSON config file")
-    sp.add_argument(
-        "-o", "--opt", action="append",
-        help="override a global option, e.g. -o MIN_LENGTH=100",
-    )
-    sp.add_argument("--verbose", action="store_true")
-    sp.add_argument("--timing", action="store_true",
-                    help="print per-stage wall times")
-    sp.set_defaults(fn=cmd_make_pangenome)
+    sp.add_argument("--size", type=int, default=3_000_000,
+                    help="total bp of the intended real runs")
+    sp.add_argument("-n", type=int, default=3,
+                    help="genome count of the intended real runs")
+    common(sp)
+    sp.set_defaults(fn=cmd_warmup)
 
     args = p.parse_args(argv)
     args.fn(args)

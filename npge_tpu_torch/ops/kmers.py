@@ -1,13 +1,16 @@
 """Canonical k-mer scan + minimizer sampling + anchor grouping in torch.
 
 Counterpart of ``npge_tpu/ops/kmers.py`` (semantics of its CPU branch).
-The 2-bit k-mer value itself is the key, held as ONE non-negative int64
-(k <= 31), so comparing keys compares the reference's (hi, lo) uint32
-pairs. The strand-canonical key is min(forward, reverse complement);
-windows that leave their sequence or hold an N are invalid. (w,k)-minimizer
-sampling keeps every tying position (window-max of window-min equals the
-key). Selected positions compact in ascending order, and a stable sort on
-the key then gives the reference's lexsort((pos, key)) order.
+The 2-bit k-mer value itself is the key, held as ONE int64 whose order is
+the reference's (hi, lo) uint32 pair order. For k <= 31 the key is the
+value itself (below 4^31, non-negative). For k = 32 the value needs all 64
+bits, so the key is the value minus 2^63 (the top bit flipped), which keeps
+the unsigned order in the signed type. The strand-canonical key is
+min(forward, reverse complement); windows that leave their sequence or
+hold an N are invalid. (w,k)-minimizer sampling keeps every tying position
+(window-max of window-min equals the key). Selected positions compact in
+ascending order, and a stable sort on the key then gives the reference's
+lexsort((pos, key)) order.
 """
 
 from __future__ import annotations
@@ -15,21 +18,48 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-_KEY_FILL = torch.iinfo(torch.int64).max  # above every valid key (< 4^31)
+# Window-min fill, at or above every valid key. For k <= 31 keys are below
+# 4^31. For k = 32 int64 max is the all-T 32-mer, which is never canonical:
+# its reverse complement, all-A, is smaller.
+_KEY_FILL = torch.iinfo(torch.int64).max
+# Window-max fill, at or below every valid key (all-A at k = 32).
+_KEY_FLOOR = torch.iinfo(torch.int64).min
+
+
+def _horner(c: torch.Tensor, T: int, a: int, b: int) -> torch.Tensor:
+    """Value of bases a..b-1 of each window, base a most significant
+    (b - a <= 31, so no shift overflows)."""
+    v = torch.zeros(T, dtype=torch.int64, device=c.device)
+    for i in range(a, b):
+        v = (v << 2) | (c[i : i + T] & 3)  # N windows are masked by has_n
+    return v
+
+
+def _rev_horner(c: torch.Tensor, T: int, a: int, b: int) -> torch.Tensor:
+    """Value of the complements of bases a..b-1 of each window, base i at
+    weight 4^(i-a) (b - a <= 31)."""
+    v = torch.zeros(T, dtype=torch.int64, device=c.device)
+    for i in range(a, b):
+        v = v | ((3 - (c[i : i + T] & 3)) << (2 * (i - a)))
+    return v
+
+
+def _u64_key(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """int64 key (hi * 2^32 + lo) - 2^63 of two 32-bit halves, computed
+    without a signed overflow."""
+    return (hi - (1 << 31)) * (1 << 32) + lo
 
 
 # mirrors npge_tpu/ops/kmers.py:kmer_scan
 def kmer_scan(codes: torch.Tensor, seq_id_of: torch.Tensor, k: int):
     """Per-position canonical k-mer keys.
 
-    codes: uint8[T] base codes (0..4); seq_id_of: int32[T]; 1 <= k <= 31.
+    codes: uint8[T] base codes (0..4); seq_id_of: int32[T]; 1 <= k <= 32.
     Returns (key int64[T] canonical key, valid positions only; strand
     int8[T] +1 forward canonical / -1 revcomp / 0 palindrome; valid
     bool[T] window fits in one sequence and holds no N)."""
-    if k == 32:
-        raise ValueError("k = 32 needs unsigned 64-bit keys; the port takes k <= 31")
-    if not (1 <= k <= 31):
-        raise ValueError("k must be in [1, 31]")
+    if not (1 <= k <= 32):
+        raise ValueError("k must be in [1, 32]")
     T = codes.shape[0]
     dev = codes.device
     c = torch.cat(
@@ -38,17 +68,23 @@ def kmer_scan(codes: torch.Tensor, seq_id_of: torch.Tensor, k: int):
     sid_ext = torch.cat(
         [seq_id_of.to(torch.int32), torch.full((k,), -1, dtype=torch.int32, device=dev)]
     )
-    f = torch.zeros(T, dtype=torch.int64, device=dev)
-    r = torch.zeros(T, dtype=torch.int64, device=dev)
     has_n = torch.zeros(T, dtype=torch.bool, device=dev)
-    # rolling (Horner) update: base i enters the forward key at weight
-    # 4^(k-1-i) and its complement enters the revcomp key at weight 4^i
-    for i in range(k):
-        ci = c[i : i + T]
-        has_n |= ci >= 4
-        b = ci & 3  # N windows are masked by has_n
-        f = (f << 2) | b
-        r = r | ((3 - b) << (2 * i))
+    if k <= 31:
+        f = torch.zeros(T, dtype=torch.int64, device=dev)
+        r = torch.zeros(T, dtype=torch.int64, device=dev)
+        # rolling (Horner) update: base i enters the forward key at weight
+        # 4^(k-1-i) and its complement enters the revcomp key at weight 4^i
+        for i in range(k):
+            ci = c[i : i + T]
+            has_n |= ci >= 4
+            b = ci & 3  # N windows are masked by has_n
+            f = (f << 2) | b
+            r = r | ((3 - b) << (2 * i))
+    else:  # 16-base halves; the revcomp's high half is the window's tail
+        for i in range(k):
+            has_n |= c[i : i + T] >= 4
+        f = _u64_key(_horner(c, T, 0, 16), _horner(c, T, 16, 32))
+        r = _u64_key(_rev_horner(c, T, 16, 32), _rev_horner(c, T, 0, 16))
     valid = (sid_ext[k - 1 : k - 1 + T] == seq_id_of) & ~has_n
     fwd_min = f < r
     key = torch.where(fwd_min, f, r)
@@ -68,8 +104,8 @@ def minimizer_mask(key: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tens
     h = torch.where(valid, key, _KEY_FILL)
     fill = torch.full((w - 1,), _KEY_FILL, dtype=torch.int64, device=key.device)
     wmin = torch.cat([h, fill]).unfold(0, w, 1).amin(dim=1)  # min over [s, s+w)
-    zero = torch.zeros(w - 1, dtype=torch.int64, device=key.device)
-    mh = torch.cat([zero, wmin]).unfold(0, w, 1).amax(dim=1)  # max over [p-w+1, p]
+    floor = torch.full((w - 1,), _KEY_FLOOR, dtype=torch.int64, device=key.device)
+    mh = torch.cat([floor, wmin]).unfold(0, w, 1).amax(dim=1)  # max over [p-w+1, p]
     return valid & (mh == h)
 
 

@@ -34,11 +34,20 @@ def _forbidden(mod: str) -> bool:
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / "npge_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"npge_tpu_torch/meta.py", "npge_tpu_torch/cli.py",
+            "npge_tpu_torch/algo/is_pangenome.py"} <= names
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
         for p in files for m in _imported_modules(p) if _forbidden(m)
     ]
+    assert not bad, bad
+
+
+def test_chip_smoke_imports_only_the_port():
+    mods = set(_imported_modules(ROOT / "chip_smoke.py"))
+    assert "npge_tpu_torch.cli" in mods
+    bad = [m for m in mods if m.split(".")[0] == "npge_tpu"]
     assert not bad, bad
 
 
@@ -58,6 +67,7 @@ from npge_tpu.io.checkpoint import load_stage, save_stage
 from npge_tpu.model.blocks import BlockSet
 from npge_tpu.model.hashing import blockset_hash
 from npge_tpu.util.synthetic import synthetic_arena
+from npge_tpu_torch import check_is_pangenome
 from npge_tpu_torch.algo.pangenome import build_pangenome
 from npge_tpu_torch.cli import main
 
@@ -73,10 +83,24 @@ assert tm.counters["gapext_pairs"] > 0, tm.counters
 assert tm.counters.get("reseed.extend_cells", 0) > 0, tm.counters
 work = tempfile.mkdtemp()
 save_stage(work, "input", BlockSet(arena, []))
-main(["make-pangenome", "-w", work, "--device", "cpu",
-      "-o", "ANCHOR_SIZE=17", "-o", "MIN_LENGTH=60", "-o", "MIN_END=3",
-      "-o", "GAPPED_FLANK=64", "-o", "MAX_LOOPS=2"])
+opts = ["-o", "ANCHOR_SIZE=17", "-o", "MIN_LENGTH=60", "-o", "MIN_END=3",
+        "-o", "GAPPED_FLANK=64", "-o", "MAX_LOOPS=2"]
+main(["make-pangenome", "-w", work, "--device", "cpu", *opts])
 assert blockset_hash(load_stage(work, "pangenome")) == blockset_hash(bs)
+# the memo, then the probe itself (a changed config skips the memo)
+for extra in ([], ["-o", "MAX_LOOPS=3"]):
+    try:
+        main(["check", "--deep", "-w", work, "--device", "cpu", *opts, *extra])
+    except SystemExit as e:
+        assert e.code == 0, e.code
+main(["run", "MakePangenome", "-w", work, "--device", "cpu",
+      "--stage-name", "again", *opts])
+assert blockset_hash(load_stage(work, "again")) == blockset_hash(bs)
+main(["post-processing", "-w", work])
+main(["report", "-w", work])
+assert os.path.exists(os.path.join(work, "report.html"))
+rep = check_is_pangenome(bs, cfg, deep=True, device="cpu")
+assert rep.ok, rep.messages
 assert "jax" not in sys.modules and "jaxlib" not in sys.modules
 print("JAX_FREE_OK", len(bs.blocks))
 """
