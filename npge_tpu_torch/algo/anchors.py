@@ -12,9 +12,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from npge_tpu.config import Config
-from npge_tpu.model.arena import GenomeArena
+from npge_tpu_torch.config import Config
 from npge_tpu_torch.device import upload_arena
+from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.ops.kmers import find_anchor_occurrences
 
 

@@ -1,31 +1,89 @@
-"""DeConSeq — map consensus-arena candidates back to genome space.
+# mirrors npge_tpu/algo/conseq.py
+"""ConSeq / DeConSeq — search the compressed (consensus) representation.
 
-Copies of the two functions of ``npge_tpu/algo/conseq.py`` that reach the
-reference's ``CandidateBatch`` (a jax module); here they test against the
-port's own class. The general (gapped) mapping path comes from the
-reference by import.
+Equivalent of the reference's consensus stage (``src/algo/ConSeq.cpp``,
+``DeConSeq.cpp`` ⚠[B], SURVEY.md §2.3): build one consensus sequence per
+block, search for similarity *between* consensuses, then map hits back
+through the originating blocks to genome fragments. In the reference the
+search is external BLAST; here it is the same k-mer anchor machinery run on
+the consensus arena (the north star explicitly replaces BLAST with hashed
+k-mer anchors + extension).
+
+Gapped source blocks are supported through the consensus column map
+(Block.consensus_with_map): a consensus interval maps to the enclosing
+alignment-column range. Candidates whose mapped pieces end up with unequal
+column widths (possible only across gapped sources) are skipped — columns
+could not be concatenated consistently without a re-alignment pass.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from npge_tpu.algo.conseq import _deconseq_general
-from npge_tpu.model.blocks import Block, BlockSet
-from npge_tpu.model.fragments import FragmentTable
-from npge_tpu_torch.algo.extender import CandidateBatch
+from npge_tpu_torch.model.arena import GenomeArena
+from npge_tpu_torch.model.blocks import Block, BlockSet, normalize_wrap_starts
+from npge_tpu_torch.model.fragments import FragmentTable
 
 
-# mirrors npge_tpu/algo/conseq.py:_deconseq_fast
+def consensus_arena(
+    bs: BlockSet,
+    cache: dict | None = None,
+    stats: dict | None = None,
+) -> tuple[GenomeArena, list[tuple[int, np.ndarray]]]:
+    """One consensus sequence per block (canonical block order).
+
+    Returns (arena of consensus sequences, list of (block index, column map)
+    per consensus sequence). Blocks with empty consensus are skipped.
+
+    ``cache`` (id -> (block, cons, cmap)) carries per-block consensus rows
+    across calls: blocks are immutable and the reseed loop preserves object
+    identity for unchanged blocks, so successive rounds only recompute the
+    consensus of blocks that actually changed (VERDICT r3 weak #3). Entries
+    pin their block object, so ids cannot be recycled onto stale rows.
+    """
+    names, seqs, src = [], [], []
+    for i, b in enumerate(bs.blocks):
+        # unique gapless blocks (the per-round Rest fillers, fresh objects
+        # every round) read their consensus straight from the arena — not
+        # worth pinning in the cache
+        cacheable = cache is not None and (
+            b.n_frags >= 2 or b.alignment is not None
+        )
+        hit = cache.get(id(b)) if cacheable else None
+        if hit is not None:
+            cons, cmap = hit[1], hit[2]
+            if stats is not None:
+                stats["cache.cons_hit"] = stats.get("cache.cons_hit", 0) + 1
+        else:
+            cons, cmap = b.consensus_with_map(bs.arena)
+            if cacheable:
+                cache[id(b)] = (b, cons, cmap)
+                if stats is not None:
+                    stats["cache.cons_miss"] = (
+                        stats.get("cache.cons_miss", 0) + 1
+                    )
+        if len(cons) == 0:
+            continue
+        names.append(f"cons{i}&b&l")
+        seqs.append(cons)
+        src.append((i, cmap))
+    return GenomeArena(names, seqs), src
+
+
 def _deconseq_fast(
     cand, cons_src: list[tuple[int, np.ndarray]], bs: BlockSet,
     assume_gapless: bool = False,
 ) -> list | None:
-    """Vectorized DeConSeq when every candidate and every touched source
-    block is gapless (the consensus column map is then the identity).
-    Returns None when a source is gapped and ``assume_gapless`` is not
-    set; otherwise a list aligned with ``cand`` (None where a candidate
-    expands to fewer than 2 fragments)."""
+    """Vectorized DeConSeq for the common case: every candidate and every
+    (touched) source block gapless. Returns None when any source is gapped
+    and ``assume_gapless`` is not set (caller falls back to the general
+    path). For a gapless source the consensus column map is the identity,
+    so cons coords ARE alignment columns.
+
+    Returns a list ALIGNED with ``cand`` — None where a candidate was
+    dropped (fewer than 2 expanded fragments)."""
+    from npge_tpu_torch.algo.extender import CandidateBatch
+
     blocks = bs.blocks
     srcs = [bi for bi, _ in cons_src]
     is_batch = isinstance(cand, CandidateBatch)
@@ -100,15 +158,25 @@ def _deconseq_fast(
     return out
 
 
-# mirrors npge_tpu/algo/conseq.py:deconseq
 def deconseq(
     cand, cons_src: list[tuple[int, np.ndarray]], bs: BlockSet,
     slice_memo: dict | None = None,
 ) -> list[Block]:
-    """Map candidates found on the consensus arena back to genome space.
-    Candidates whose touched source blocks are all gapless (and that are
-    gapless themselves) take the vectorized path, the rest the per-piece
-    general path; the merged result keeps candidate order."""
+    """Map candidate blocks found on the consensus arena back to genome
+    space: a consensus fragment (cons_i, start, len, ori) expands to *all*
+    fragments of source block i sliced to the enclosing alignment columns
+    (orientation flips applied via Block.inverse). Pieces of one candidate
+    concatenate column-wise into a single genome-space block.
+
+    ``cand`` may be a list of Blocks or the extender's CandidateBatch.
+    Candidates are split PER CANDIDATE: those whose touched source blocks
+    are all gapless (and that are themselves gapless) run the fully
+    vectorized fast path; only the rest pay the per-piece general path —
+    at the 50-100-genome scales most candidates map through gapless
+    uniques/stems, and the all-or-nothing split made one gapped source
+    push every candidate onto the slow path (VERDICT r4 profiling)."""
+    from npge_tpu_torch.algo.extender import CandidateBatch
+
     n = len(cand)
     if n == 0:
         return []
@@ -153,10 +221,84 @@ def deconseq(
         _deconseq_general(sub_slow, cons_src, bs, slice_memo)
         if sub_slow else []
     )
-    # merge preserving candidate order (admission determinism)
+    # merge preserving candidate order (admission determinism). Both
+    # paths return ALIGNED lists (None where a candidate was dropped —
+    # <2 fragments or ragged widths); filter after the merge.
     merged: list = [None] * n
     for i, b in zip(fast_ids, fast_out):
         merged[int(i)] = b
     for i, b in zip(slow_ids, slow_out):
         merged[int(i)] = b
     return [b for b in merged if b is not None]
+
+
+def _deconseq_general(
+    cand: list[Block], cons_src: list[tuple[int, np.ndarray]], bs: BlockSet,
+    slice_memo: dict | None = None,
+) -> list:
+    """Per-piece mapping path (gapped sources). Returns a list ALIGNED
+    with ``cand`` — None where a candidate was dropped.
+
+    ``slice_memo`` ((id(src block), c0, c1, ori) -> (src block, piece))
+    carries sliced pieces across calls: source blocks are immutable and
+    keep object identity across reseed rounds, and successive rounds map
+    near-identical candidate sets — at the 100-genome scale the repeated
+    slice/normalize/inverse chain dominated the reseed mapping cost.
+    Entries pin the source block (id-alias safety); pieces are immutable
+    and only ever read, so sharing one object across candidates is safe."""
+    out: list = []
+    for cb in cand:
+        pieces: list[Block] = []
+        ok = True
+        for fi in range(cb.n_frags):
+            ci, st, ln, o = cb.frags.row(fi)
+            bi, cmap = cons_src[ci]
+            src_block = bs.blocks[bi]
+            c0, c1 = int(cmap[st]), int(cmap[st + ln - 1]) + 1
+            mkey = (id(src_block), c0, c1, int(o))
+            hit = slice_memo.get(mkey) if slice_memo is not None else None
+            if hit is not None:
+                piece = hit[1]
+                if piece is None:
+                    ok = False
+                    break
+                pieces.append(piece)
+                continue
+            piece = src_block.slice(c0, c1)
+            if piece is not None:
+                piece = normalize_wrap_starts(piece, bs.arena)
+                if o == -1:
+                    piece = piece.inverse()
+            if slice_memo is not None:
+                slice_memo[mkey] = (src_block, piece)
+            if piece is None:
+                ok = False
+                break
+            pieces.append(piece)
+        if not ok or not pieces:
+            out.append(None)
+            continue
+        widths = {p.n_cols for p in pieces}
+        if len(widths) != 1:
+            out.append(None)  # unequal-width gapped pieces: skip
+            continue
+        nf = sum(p.n_frags for p in pieces)
+        if nf < 2:
+            out.append(None)
+            continue
+        gapless = all(p.is_gapless for p in pieces)
+        aln = (
+            None if gapless
+            else np.concatenate([p.rows(bs.arena) for p in pieces], axis=0)
+        )
+        # column-wise concat of the pieces' fragment tables (same order as
+        # the per-row append it replaces; ~1M Block.frags.row calls per
+        # reseed round at the 100-genome scale)
+        ft = FragmentTable(
+            np.concatenate([p.frags.seq_id for p in pieces]),
+            np.concatenate([p.frags.start for p in pieces]),
+            np.concatenate([p.frags.length for p in pieces]),
+            np.concatenate([p.frags.ori for p in pieces]),
+        )
+        out.append(Block(ft, aln))
+    return out

@@ -14,14 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from npge_tpu.config import Config
-from npge_tpu.model.arena import GenomeArena
-from npge_tpu.model.blocks import Block
-from npge_tpu.model.fragments import FragmentTable
-from npge_tpu.util.csr import csr_gather
 from npge_tpu_torch.algo.anchors import AnchorGroups
+from npge_tpu_torch.config import Config
 from npge_tpu_torch.device import upload_arena
+from npge_tpu_torch.model.arena import GenomeArena
+from npge_tpu_torch.model.blocks import Block
+from npge_tpu_torch.model.fragments import FragmentTable
 from npge_tpu_torch.ops.extend import bases_for_groups, extend_rounds
+from npge_tpu_torch.util.csr import csr_gather
 
 # target element budget per (B, F, S) window gather of one side; both sides
 # ride one batch, so a batch gathers twice this

@@ -1,27 +1,87 @@
 """IsPangenome — the correctness oracle, with the deep probe on a device.
 
-Counterpart of ``npge_tpu/algo/is_pangenome.py``. Checks 1-3b (partition,
-good blocks, no joinable or snappable pairs) are host code and run through
-the reference's own function. The deep probe, one consensus re-seed round
-at k = MIN_ANCHOR_SIZE, runs the port's scan, extension, deconseq and
-resolve on the named device.
+Counterpart of ``npge_tpu/algo/is_pangenome.py``. Checks 1-3b are host
+code, copied from the reference:
+
+  1. partition: every genome position belongs to exactly one block;
+  2. every multi-fragment block is good;
+  3. no two neighbouring blocks are joinable (Joiner dry run empty);
+  3b. no snappable boundaries (Stick dry run empty).
+
+The deep probe, one consensus re-seed round at k = MIN_ANCHOR_SIZE, runs
+the port's scan, extension, deconseq and resolve on the named device.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass, field
 
-from npge_tpu.algo.conseq import consensus_arena
-from npge_tpu.algo.is_pangenome import PangenomeReport
-from npge_tpu.algo.is_pangenome import check_is_pangenome as _host_checks
-from npge_tpu.algo.surgery import quality_metric
-from npge_tpu.config import Config
-from npge_tpu.model.blocks import BlockSet
 from npge_tpu_torch.algo.anchors import find_anchors
-from npge_tpu_torch.algo.conseq import deconseq
+from npge_tpu_torch.algo.conseq import consensus_arena, deconseq
 from npge_tpu_torch.algo.extender import extend_anchor_groups
+from npge_tpu_torch.algo.joiner import _StatCache, joinable_pairs
 from npge_tpu_torch.algo.overlaps import resolve_overlaps
+from npge_tpu_torch.algo.stick import snappable_pairs
+from npge_tpu_torch.algo.surgery import quality_metric
+from npge_tpu_torch.config import Config
 from npge_tpu_torch.device import resolve_device, upload_arena
+from npge_tpu_torch.model.blocks import BlockSet
+from npge_tpu_torch.model.stats import is_good_block
+
+
+# mirrors npge_tpu/algo/is_pangenome.py:PangenomeReport
+@dataclass
+class PangenomeReport:
+    ok: bool
+    uncovered_positions: int = 0
+    overcovered_positions: int = 0
+    bad_blocks: list[str] = field(default_factory=list)
+    joinable: int = 0
+    snappable: int = 0
+    new_hits: int = 0
+    messages: list[str] = field(default_factory=list)
+
+
+# mirrors npge_tpu/algo/is_pangenome.py:check_is_pangenome (checks 1-3b)
+def _host_checks(bs: BlockSet, cfg: Config) -> PangenomeReport:
+    rep = PangenomeReport(ok=True)
+
+    # 1. partition invariant
+    cov = bs.coverage_per_seq()
+    for seq_id, c in enumerate(cov):
+        un = int((c == 0).sum())
+        ov = int((c > 1).sum())
+        rep.uncovered_positions += un
+        rep.overcovered_positions += ov
+        if un or ov:
+            rep.ok = False
+            rep.messages.append(
+                f"seq {bs.arena.names[seq_id]}: {un} uncovered, {ov} overcovered"
+            )
+
+    # 2. good blocks
+    for i, b in enumerate(bs.blocks):
+        if not is_good_block(b, bs.arena, cfg):
+            rep.ok = False
+            rep.bad_blocks.append(b.name or f"#{i}")
+    if rep.bad_blocks:
+        rep.messages.append(f"{len(rep.bad_blocks)} bad blocks")
+
+    # 3. no joinable neighbors (incl. bounded-gap joins that would stay good)
+    rep.joinable = len(joinable_pairs(bs, cfg, _StatCache(bs, cfg.MIN_END)))
+    if rep.joinable:
+        rep.ok = False
+        rep.messages.append(f"{rep.joinable} joinable block pairs")
+
+    # 3b. no snappable boundaries (Stick dry run)
+    rep.snappable = len(snappable_pairs(bs, cfg))
+    if rep.snappable:
+        rep.ok = False
+        rep.messages.append(
+            f"{rep.snappable} snappable block pairs (run Stick)"
+        )
+    return rep
 
 
 # mirrors npge_tpu/algo/is_pangenome.py:check_is_pangenome
@@ -29,14 +89,14 @@ def check_is_pangenome(
     bs: BlockSet, cfg: Config, deep: bool = False, device=None,
     timings=None,
 ) -> PangenomeReport:
-    """The reference's checks 1-3b, then with ``deep`` the re-seed probe on
+    """Checks 1-3b, then with ``deep`` the re-seed probe on
     ``device`` ("cuda" or "cpu"; required with ``deep``, never guessed).
     ``timings`` (StageTimings) receives the probe's stage seconds under
     ``deep.cons``, ``deep.scan``, ``deep.extend``, ``deep.deconseq`` and
     ``deep.resolve``, and the ``deep.extend_cells`` counter."""
     if deep and device is None:
         raise ValueError("the deep probe needs an explicit device")
-    rep = _host_checks(bs, cfg, deep=False)
+    rep = _host_checks(bs, cfg)
     if not deep:
         return rep
     dev = resolve_device(device)

@@ -13,21 +13,19 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
-from npge_tpu.algo.conseq import consensus_arena
-from npge_tpu.algo.joiner import _StatCache, join_blocks
-from npge_tpu.algo.overlaps import occupancy
-from npge_tpu.algo.rest import rest_blocks
-from npge_tpu.algo.surgery import quality_metric
-from npge_tpu.config import Config
-from npge_tpu.model.arena import GenomeArena
-from npge_tpu.model.blocks import BlockSet
-from npge_tpu.model.hashing import blockset_hash
-from npge_tpu.model.naming import assign_names
 from npge_tpu_torch.algo.anchors import find_anchors
-from npge_tpu_torch.algo.conseq import deconseq
+from npge_tpu_torch.algo.conseq import consensus_arena, deconseq
 from npge_tpu_torch.algo.extender import extend_anchor_groups
 from npge_tpu_torch.algo.gapext import gapped_extend_blocks
-from npge_tpu_torch.algo.overlaps import resolve_overlaps
+from npge_tpu_torch.algo.joiner import _StatCache, join_blocks
+from npge_tpu_torch.algo.overlaps import occupancy, resolve_overlaps
+from npge_tpu_torch.algo.rest import rest_blocks
+from npge_tpu_torch.algo.surgery import quality_metric
+from npge_tpu_torch.config import Config
+from npge_tpu_torch.model.arena import GenomeArena
+from npge_tpu_torch.model.blocks import BlockSet
+from npge_tpu_torch.model.hashing import blockset_hash
+from npge_tpu_torch.model.naming import assign_names
 from npge_tpu_torch.device import resolve_device, upload_arena
 
 

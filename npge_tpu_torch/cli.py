@@ -14,7 +14,7 @@ The options are the reference's, except that ``--platform`` is
 the device exits non-zero when that device is unavailable; nothing falls
 back to the CPU unless ``--device cpu`` asks for it. The host verbs
 (``prepare``, ``examine``, ``info``, ``hash``, ``post-processing``,
-``report``) are the reference's own functions.
+``report``) are copies of the reference's.
 """
 
 from __future__ import annotations
@@ -24,11 +24,41 @@ import json
 import os
 import sys
 
-from npge_tpu.cli import (
-    _load_cfg, _load_input, cmd_examine, cmd_hash, cmd_info,
-    cmd_post_processing, cmd_prepare, cmd_report,
-)
-from npge_tpu.model.hashing import blockset_hash
+from npge_tpu_torch.config import Config, default_config
+from npge_tpu_torch.model.blocks import BlockSet
+from npge_tpu_torch.model.hashing import blockset_hash
+
+
+# mirrors npge_tpu/cli.py:_load_cfg
+def _load_cfg(args) -> Config:
+    cfg = default_config()
+    if getattr(args, "config", None):
+        with open(args.config) as fh:
+            cfg = cfg.replace(**json.load(fh))
+    for kv in getattr(args, "opt", None) or []:
+        k, v = kv.split("=", 1)
+        cur = getattr(cfg, k)  # raises on unknown knob
+        if k == "MIN_IDENTITY":
+            cfg = cfg.replace(**{k: v})
+        elif isinstance(cur, bool):
+            cfg = cfg.replace(**{k: v.lower() in ("1", "true", "yes")})
+        else:
+            cfg = cfg.replace(**{k: int(v)})
+    return cfg
+
+
+# mirrors npge_tpu/cli.py:_load_input
+def _load_input(workdir: str, stage: str | None = None) -> BlockSet:
+    from npge_tpu_torch.io.checkpoint import load_stage
+
+    stages = [stage] if stage else ["pangenome", "input"]
+    for st in stages:
+        bs = load_stage(workdir, st)
+        if bs is not None:
+            return bs
+    raise SystemExit(
+        f"no {'/'.join(stages)}.bs under {workdir}; run prepare first"
+    )
 
 
 def _device(args):
@@ -42,10 +72,139 @@ def _device(args):
         raise SystemExit(f"{args.cmd}: {e}")
 
 
+# mirrors npge_tpu/cli.py:cmd_prepare
+def cmd_prepare(args) -> None:
+    from npge_tpu_torch.io.checkpoint import save_stage
+    from npge_tpu_torch.io.fasta import arena_from_fasta_files, read_genomes_tsv
+
+    rename = {}
+    fasta = list(args.fasta or [])
+    if args.genomes:
+        table = read_genomes_tsv(args.genomes)
+        rename = dict(table)
+        if not fasta:
+            # GetData parity: accessions resolve against local --data-dir
+            # files first; with --download, missing ones are fetched over
+            # HTTP (io/getdata — ENA by default, NPGE_FASTA_URL override)
+            data_dir = args.data_dir or "."
+            if getattr(args, "download", False):
+                import urllib.error
+
+                from npge_tpu_torch.io.getdata import fetch_missing
+
+                try:
+                    fetch_missing([acc for acc, _ in table], data_dir)
+                except urllib.error.URLError as e:
+                    raise SystemExit(f"download failed: {e}")
+                except OSError as e:
+                    raise SystemExit(f"download failed: {e}")
+            missing = []
+            for acc, _name in table:
+                for ext in (".fa", ".fasta", ".fa.gz", ".fasta.gz"):
+                    p = os.path.join(data_dir, acc + ext)
+                    if os.path.exists(p):
+                        fasta.append(p)
+                        break
+                else:
+                    missing.append(acc)
+            if missing:
+                raise SystemExit(
+                    f"accessions without local FASTA under {data_dir}: "
+                    f"{', '.join(missing)} (pass --download to fetch over "
+                    "HTTP, or place <accession>.fa files in --data-dir)"
+                )
+    if not fasta:
+        raise SystemExit("prepare needs --fasta files or --genomes with --data-dir")
+    arena = arena_from_fasta_files(fasta, rename)
+    bs = BlockSet(arena, [])
+    path = save_stage(args.workdir, "input", bs)
+    print(f"prepared {arena.n_seqs} sequences, {arena.total_length} bp -> {path}")
+
+
+# mirrors npge_tpu/cli.py:cmd_examine
+def cmd_examine(args) -> None:
+    from npge_tpu_torch.algo.reports import info_text
+
+    bs = _load_input(args.workdir, getattr(args, 'stage', None))
+    print(info_text(bs))
+
+
+# mirrors npge_tpu/cli.py:cmd_post_processing
+def cmd_post_processing(args) -> None:
+    from npge_tpu_torch.algo.bsa import exact_stem_bsa, find_bsa
+    from npge_tpu_torch.algo.mutations import mutations_tsv
+    from npge_tpu_torch.algo.reports import block_info_tsv, info_text, per_genome_table
+    from npge_tpu_torch.algo.trees import consensus_tree, distances_tsv
+
+    from npge_tpu_torch.util.streams import write_text
+
+    bs = _load_input(args.workdir, getattr(args, 'stage', None))
+    out = args.workdir
+    # targets go through the named-stream resolver (util/streams): a test
+    # or script can repoint any of them at :stdout / a :named memory
+    # stream by overriding --target NAME=STREAM
+    targets = {
+        "blocks.tsv": lambda: block_info_tsv(bs),
+        "mutations.tsv": lambda: mutations_tsv(bs),
+        "distances.tsv": lambda: distances_tsv(bs),
+        # bsa.tsv is the order-aligned (rearrangement) view
+        "bsa.tsv": lambda: find_bsa(bs).tsv(),
+        "bsa_scaffold.tsv": lambda: exact_stem_bsa(bs).tsv(),
+        "info.txt": lambda: info_text(bs) + "\n",
+        "genomes_stats.tsv": lambda: per_genome_table(bs),
+    }
+    tree, n_used = consensus_tree(bs)
+    targets["consensus_tree.nwk"] = (
+        lambda: tree.newick(with_support=True) + "\n"
+    )
+    overrides = {}
+    for kv in getattr(args, "target", None) or []:
+        if "=" not in kv:
+            raise SystemExit(
+                f"--target expects FILE=STREAM, got {kv!r}"
+            )
+        fname, stream = kv.split("=", 1)
+        if fname not in targets:
+            raise SystemExit(
+                f"--target: unknown output {fname!r} "
+                f"(known: {', '.join(sorted(targets))})"
+            )
+        overrides[fname] = stream
+    for fname, render in targets.items():
+        dest = overrides.get(fname, os.path.join(out, fname))
+        write_text(dest, render())
+    print(
+        f"post-processing written to {out}: blocks.tsv mutations.tsv "
+        f"distances.tsv bsa.tsv consensus_tree.nwk (over {n_used} stem trees) info.txt"
+    )
+
+
+# mirrors npge_tpu/cli.py:cmd_info
+def cmd_info(args) -> None:
+    from npge_tpu_torch.algo.reports import info_text
+
+    print(info_text(_load_input(args.workdir, getattr(args, 'stage', None))))
+
+
+# mirrors npge_tpu/cli.py:cmd_hash
+def cmd_hash(args) -> None:
+    print(f"{blockset_hash(_load_input(args.workdir, getattr(args, 'stage', None))):016x}")
+
+
+# mirrors npge_tpu/cli.py:cmd_report
+def cmd_report(args) -> None:
+    from npge_tpu_torch.io.html_report import write_report
+
+    bs = _load_input(args.workdir, getattr(args, 'stage', None))
+    out = os.path.join(args.workdir, "report.html")
+    write_report(bs, out, _load_cfg(args))
+    print(f"wrote {out}")
+
+
 # mirrors npge_tpu/cli.py:cmd_make_pangenome
 def cmd_make_pangenome(args) -> None:
-    from npge_tpu.algo.reports import json_line
-    from npge_tpu.io.checkpoint import load_stage, save_stage
+    from npge_tpu_torch.algo.reports import json_line
+    from npge_tpu_torch.io.checkpoint import load_stage, save_stage
     from npge_tpu_torch.algo.is_pangenome import check_is_pangenome
     from npge_tpu_torch.algo.pangenome import build_pangenome
 
@@ -119,7 +278,7 @@ def cmd_check(args) -> None:
 def cmd_run(args) -> None:
     """Run a named processor/pipe or a Python script with
     meta/bs/cfg/device in scope."""
-    from npge_tpu.io.checkpoint import save_stage
+    from npge_tpu_torch.io.checkpoint import save_stage
     from npge_tpu_torch import meta
 
     dev = _device(args)
@@ -162,15 +321,21 @@ def cmd_shell(args) -> None:
 
 
 def cmd_warmup(args) -> None:
-    """Build the kernel library (nvcc, once per checkout) and run one
-    synthetic build of the intended size on the device, so the first real
-    run starts with the library built and the CUDA context warm."""
+    """Build both of the port's libraries (the C++ host library with g++,
+    and on a GPU the CUDA kernel library with nvcc, each once per checkout)
+    and run one synthetic build of the intended size on the device, so the
+    first real run starts with both built and the CUDA context warm."""
     import time
 
-    from npge_tpu.util.synthetic import synthetic_arena
+    from npge_tpu_torch import native
     from npge_tpu_torch.algo.pangenome import build_pangenome
+    from npge_tpu_torch.util.synthetic import synthetic_arena
 
     dev = _device(args)
+    host = (
+        f"host library {native.library_path()}" if native.have_native()
+        else "host library did not build (NumPy fallbacks)"
+    )
     lib = "no kernel library on the CPU (plain torch versions)"
     if dev.type == "cuda":
         from npge_tpu_torch.ops import _build
@@ -186,7 +351,8 @@ def cmd_warmup(args) -> None:
     bs, _ = build_pangenome(arena, _load_cfg(args), dev)
     print(
         f"warmup: {args.n}x{per} bp built on {dev} in "
-        f"{time.perf_counter() - t0:.1f}s ({len(bs.blocks)} blocks); {lib}"
+        f"{time.perf_counter() - t0:.1f}s ({len(bs.blocks)} blocks); "
+        f"{host}; {lib}"
     )
 
 
@@ -266,8 +432,8 @@ def main(argv=None) -> None:
 
     sp = sub.add_parser(
         "warmup",
-        help="build the kernel library and run one synthetic build of the "
-             "intended size on the device",
+        help="build the host and kernel libraries and run one synthetic "
+             "build of the intended size on the device",
     )
     sp.add_argument("--size", type=int, default=3_000_000,
                     help="total bp of the intended real runs")

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from npge_tpu.model.arena import GenomeArena
+from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.ops.extend import make_codes2
 
 # attribute under which upload_arena caches device copies on an arena

@@ -3,9 +3,9 @@
 Counterpart of ``npge_tpu/meta.py``: the same processor and pipe names, and
 a stage is a function ``(BlockSet, Config, device) -> BlockSet``. The four
 stages with device work (AnchorFinder, OverlapsResolver, MakePangenome,
-IsPangenome) call the port's own code on ``device``; every other stage
-calls the same host function of ``npge_tpu`` that the reference's stage
-calls, and ignores the device.
+IsPangenome) run on ``device``; every other stage calls the port's copy
+of the host function that the reference's stage calls, and ignores the
+device.
 
 ``run_script`` executes a user script with ``meta``, ``bs``, ``cfg`` and
 ``device`` in scope (the reference's Lua terminal with ``meta`` in scope).
@@ -15,8 +15,8 @@ from __future__ import annotations
 
 from typing import Callable
 
-from npge_tpu.config import Config
-from npge_tpu.model.blocks import BlockSet
+from npge_tpu_torch.config import Config
+from npge_tpu_torch.model.blocks import BlockSet
 
 Stage = Callable[[BlockSet, Config, object], BlockSet]
 
@@ -107,12 +107,12 @@ def _is_pangenome(bs: BlockSet, cfg: Config, device) -> BlockSet:
     return bs
 
 
-# ---- host stages (the reference's host functions) ----
+# ---- host stages ----
 
 
 @register("Joiner")
 def _join(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.joiner import join_blocks
+    from npge_tpu_torch.algo.joiner import join_blocks
 
     join_blocks(bs, cfg)
     return bs
@@ -120,8 +120,8 @@ def _join(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("Rest")
 def _rest(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.overlaps import occupancy
-    from npge_tpu.algo.rest import rest_blocks
+    from npge_tpu_torch.algo.overlaps import occupancy
+    from npge_tpu_torch.algo.rest import rest_blocks
 
     bs.blocks.extend(rest_blocks(bs.arena, occupancy(bs.arena, bs.blocks)))
     return bs
@@ -129,21 +129,21 @@ def _rest(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("Filter")
 def _filter(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.filter import filter_blocks
+    from npge_tpu_torch.algo.filter import filter_blocks
 
     return BlockSet(bs.arena, filter_blocks(bs.blocks, bs.arena, cfg))
 
 
 @register("Stem")
 def _stem(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.algebra import stem
+    from npge_tpu_torch.algo.algebra import stem
 
     return stem(bs)
 
 
 @register("UniqueNames")
 def _names(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.model.naming import assign_names
+    from npge_tpu_torch.model.naming import assign_names
 
     assign_names(bs)
     return bs
@@ -151,7 +151,7 @@ def _names(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("MergeUnique")
 def _merge_unique(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.surgery import merge_unique
+    from npge_tpu_torch.algo.surgery import merge_unique
 
     merge_unique(bs, cfg)
     return bs
@@ -159,7 +159,7 @@ def _merge_unique(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("MoveGaps")
 def _move_gaps(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.surgery import move_gaps
+    from npge_tpu_torch.algo.surgery import move_gaps
 
     bs.blocks = [move_gaps(b, bs.arena) for b in bs.blocks]
     return bs
@@ -167,7 +167,7 @@ def _move_gaps(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("CutGaps")
 def _cut_gaps(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.surgery import cut_gaps
+    from npge_tpu_torch.algo.surgery import cut_gaps
 
     bs.blocks = [
         cb for b in bs.blocks if (cb := cut_gaps(b, bs.arena)) is not None
@@ -177,7 +177,7 @@ def _cut_gaps(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("SplitRepeats")
 def _split_repeats(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.surgery import split_repeats
+    from npge_tpu_torch.algo.surgery import split_repeats
 
     out = []
     for b in bs.blocks:
@@ -192,7 +192,7 @@ def _split_repeats(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("FindLowSimilar")
 def _find_low_similar(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.surgery import find_low_similar
+    from npge_tpu_torch.algo.surgery import find_low_similar
 
     out = []
     for b in bs.blocks:
@@ -203,7 +203,7 @@ def _find_low_similar(bs: BlockSet, cfg: Config, device) -> BlockSet:
 
 @register("Stick")
 def _stick(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.stick import stick_blocks
+    from npge_tpu_torch.algo.stick import stick_blocks
 
     stick_blocks(bs, cfg)
     return bs
@@ -212,7 +212,7 @@ def _stick(bs: BlockSet, cfg: Config, device) -> BlockSet:
 @register("Align")
 @register("MetaAligner")
 def _align(bs: BlockSet, cfg: Config, device) -> BlockSet:
-    from npge_tpu.algo.aligners import align_block
+    from npge_tpu_torch.algo.aligners import align_block
 
     bs.blocks = [align_block(b, bs.arena, cfg) for b in bs.blocks]
     return bs

@@ -1,0 +1,289 @@
+# mirrors npge_tpu/native.py
+"""ctypes bindings for the C++ host-runtime kernels (csrc/npge_native.cpp).
+
+The port's own copy of the reference's host library. It is built with g++
+at first use into ``build/npge_tpu_torch/`` at the root of the checkout,
+named by a hash of the source and flags, so the two packages never share a
+build product. Every entry point has a NumPy fallback so the package works
+without a toolchain; ``have_native()`` reports which path is active and
+tests assert parity between the two.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+import numpy as np
+
+_PKG = Path(__file__).resolve().parent
+_SRC = _PKG / "csrc" / "npge_native.cpp"
+_BUILD_DIR = _PKG.parent / "build" / "npge_tpu_torch"
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
+_lib = None
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(_SRC.read_bytes())
+    return _BUILD_DIR / f"libnpge_native_{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> bool:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cxx = os.environ.get("CXX", "g++")
+    try:
+        subprocess.run(
+            [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
+            check=True,
+            capture_output=True,
+            timeout=120,
+        )
+        os.replace(tmp, out)
+        return True
+    except Exception:
+        tmp.unlink(missing_ok=True)
+        return False
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib
+    so = library_path()
+    if not so.exists() and not _build(so):
+        _lib = False
+        return _lib
+    try:
+        lib = ctypes.CDLL(str(so))
+    except OSError:
+        _lib = False
+        return _lib
+    c_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    c_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    c_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+    c_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
+    lib.npge_encode_bytes.argtypes = [ctypes.c_char_p, ctypes.c_int64, c_u8p]
+    lib.npge_fasta_encode.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, c_u8p, c_i64p, c_i64p, c_i64p,
+        ctypes.c_int64,
+    ]
+    lib.npge_fasta_encode.restype = ctypes.c_int64
+    lib.npge_pack2.argtypes = [c_u8p, ctypes.c_int64, c_u32p, c_u8p]
+    lib.npge_unpack2.argtypes = [c_u32p, c_u8p, ctypes.c_int64, c_u8p]
+    lib.npge_mark_intervals.argtypes = [
+        c_u8p, ctypes.c_int64, c_i32p, c_i32p, ctypes.c_int64,
+    ]
+    lib.npge_uncovered_runs.argtypes = [
+        c_u8p, ctypes.c_int64, c_i32p, c_i32p, ctypes.c_int64,
+    ]
+    lib.npge_uncovered_runs.restype = ctypes.c_int64
+    lib.npge_resolve_gapless.argtypes = [
+        c_u8p, c_i64p, ctypes.c_int32, c_u8p,
+        c_i64p, c_i32p, c_i32p, c_i32p, c_i32p,
+        c_i64p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        c_i64p, c_i32p, c_i32p, c_i32p, c_i32p, c_i64p,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.npge_resolve_gapless.restype = ctypes.c_int64
+    lib.npge_nw_align.argtypes = [
+        c_u8p, ctypes.c_int64, c_u8p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
+        c_u8p, c_u8p,
+    ]
+    lib.npge_nw_align.restype = ctypes.c_int64
+    _lib = lib
+    return _lib
+
+
+def have_native() -> bool:
+    return bool(_load())
+
+
+def encode_bytes(data: bytes) -> np.ndarray:
+    lib = _load()
+    if lib:
+        out = np.empty(len(data), np.uint8)
+        lib.npge_encode_bytes(data, len(data), out)
+        return out
+    from npge_tpu_torch.util.codes import encode
+
+    return encode(data)
+
+
+def fasta_encode(data: bytes):
+    """Parse FASTA bytes natively. Returns (headers, codes, offsets) or None
+    if the native library is unavailable (caller falls back to Python)."""
+    lib = _load()
+    if not lib:
+        return None
+    n = len(data)
+    max_seqs = max(16, data.count(b">") + 1)
+    codes = np.empty(n, np.uint8)
+    offsets = np.zeros(max_seqs + 1, np.int64)
+    hs = np.zeros(max_seqs, np.int64)
+    he = np.zeros(max_seqs, np.int64)
+    nseq = lib.npge_fasta_encode(data, n, codes, offsets, hs, he, max_seqs)
+    if nseq < 0:
+        return None
+    headers = [
+        data[hs[i] : he[i]].decode("ascii", "replace") for i in range(nseq)
+    ]
+    return headers, codes[: offsets[nseq]].copy(), offsets[: nseq + 1].copy()
+
+
+def pack2(codes: np.ndarray):
+    """(packed uint32[ceil(n/16)], nmask uint8[n]) — CompactSequence parity."""
+    codes = np.ascontiguousarray(codes, np.uint8)
+    n = len(codes)
+    lib = _load()
+    packed = np.zeros((n + 15) // 16, np.uint32)
+    nmask = np.zeros(n, np.uint8)
+    if lib:
+        lib.npge_pack2(codes, n, packed, nmask)
+        return packed, nmask
+    nmask[:] = codes >= 4
+    vals = np.where(codes < 4, codes, 0).astype(np.uint32)
+    idx = np.arange(n)
+    np.bitwise_or.at(packed, idx // 16, vals << (2 * (idx % 16)).astype(np.uint32))
+    return packed, nmask
+
+
+def unpack2(packed: np.ndarray, nmask: np.ndarray, n: int) -> np.ndarray:
+    lib = _load()
+    out = np.empty(n, np.uint8)
+    if lib:
+        lib.npge_unpack2(
+            np.ascontiguousarray(packed, np.uint32),
+            np.ascontiguousarray(nmask, np.uint8), n, out,
+        )
+        return out
+    idx = np.arange(n)
+    vals = (packed[idx // 16] >> (2 * (idx % 16)).astype(np.uint32)) & 3
+    return np.where(nmask[:n] > 0, 4, vals).astype(np.uint8)
+
+
+def mark_intervals(occ: np.ndarray, start: np.ndarray, length: np.ndarray):
+    lib = _load()
+    if lib and len(start):
+        lib.npge_mark_intervals(
+            occ, len(occ),
+            np.ascontiguousarray(start, np.int32),
+            np.ascontiguousarray(length, np.int32),
+            len(start),
+        )
+        return
+    for s, ln in zip(start, length):
+        occ[s : s + ln] = 1
+
+
+def nw_align(a: np.ndarray, b: np.ndarray, match: int, mismatch: int,
+             gap: int, gap_code: int):
+    """C++ global NW (linear gaps) — exact mirror of
+    algo.similar.nw_align's values and traceback tie-breaks. Returns
+    (row_a, row_b) uint8 arrays, or None if the library is unavailable."""
+    lib = _load()
+    if not lib:
+        return None
+    a = np.ascontiguousarray(a, np.uint8)
+    b = np.ascontiguousarray(b, np.uint8)
+    n, m = len(a), len(b)
+    out_a = np.empty(n + m, np.uint8)
+    out_b = np.empty(n + m, np.uint8)
+    L = lib.npge_nw_align(a, n, b, m, match, mismatch, gap, gap_code,
+                          out_a, out_b)
+    return out_a[n + m - L :], out_b[n + m - L :]
+
+
+def resolve_gapless(
+    codes: np.ndarray,
+    seq_offsets: np.ndarray,
+    occ_concat: np.ndarray,
+    cand_offsets: np.ndarray,
+    f_seq: np.ndarray,
+    f_start: np.ndarray,
+    f_len: np.ndarray,
+    f_ori: np.ndarray,
+    order: np.ndarray,
+    min_length: int,
+    min_end: int,
+    ident_num: int,
+    ident_den: int,
+):
+    """C++ greedy admission of gapless candidates. Mutates occ_concat.
+    Returns (out_offsets, o_seq, o_start, o_len, o_ori, o_src) or None if
+    the native library is unavailable; o_src[k] is the input candidate
+    index the k-th output block was sliced from (lets the caller reuse the
+    input Block object when a candidate was admitted whole)."""
+    lib = _load()
+    if not lib:
+        return None
+    n_cand = len(order)
+    max_blocks = max(1024, 4 * n_cand)
+    max_frags = max(4096, int(cand_offsets[-1]) * 4)
+    while True:
+        out_off = np.zeros(max_blocks + 1, np.int64)
+        o_seq = np.empty(max_frags, np.int32)
+        o_start = np.empty(max_frags, np.int32)
+        o_len = np.empty(max_frags, np.int32)
+        o_ori = np.empty(max_frags, np.int32)
+        o_src = np.zeros(max_blocks, np.int64)
+        occ_save = occ_concat.copy()
+        nb = lib.npge_resolve_gapless(
+            np.ascontiguousarray(codes, np.uint8),
+            np.ascontiguousarray(seq_offsets, np.int64),
+            len(seq_offsets) - 1,
+            occ_concat,
+            np.ascontiguousarray(cand_offsets, np.int64),
+            np.ascontiguousarray(f_seq, np.int32),
+            np.ascontiguousarray(f_start, np.int32),
+            np.ascontiguousarray(f_len, np.int32),
+            np.ascontiguousarray(f_ori, np.int32),
+            np.ascontiguousarray(order, np.int64),
+            n_cand,
+            min_length, min_end, ident_num, ident_den,
+            out_off, o_seq, o_start, o_len, o_ori, o_src,
+            max_blocks, max_frags,
+        )
+        if nb >= 0:
+            nf = int(out_off[nb])
+            return (
+                out_off[: nb + 1].copy(),
+                o_seq[:nf].copy(),
+                o_start[:nf].copy(),
+                o_len[:nf].copy(),
+                o_ori[:nf].copy(),
+                o_src[:nb].copy(),
+            )
+        # overflow: restore occupancy and retry with bigger buffers
+        occ_concat[:] = occ_save
+        max_blocks *= 4
+        max_frags *= 4
+
+
+def uncovered_runs(occ: np.ndarray):
+    """(starts, ends) int32 arrays of maximal zero-runs."""
+    lib = _load()
+    if lib:
+        cap = 1024
+        while True:
+            starts = np.empty(cap, np.int32)
+            ends = np.empty(cap, np.int32)
+            cnt = lib.npge_uncovered_runs(occ, len(occ), starts, ends, cap)
+            if cnt >= 0:
+                return starts[:cnt].copy(), ends[:cnt].copy()
+            cap *= 4
+    x = occ == 0
+    d = np.diff(x.astype(np.int8))
+    starts = np.flatnonzero(d == 1) + 1
+    ends = np.flatnonzero(d == -1) + 1
+    if len(x) and x[0]:
+        starts = np.concatenate([[0], starts])
+    if len(x) and x[-1]:
+        ends = np.concatenate([ends, [len(x)]])
+    return starts.astype(np.int32), ends.astype(np.int32)

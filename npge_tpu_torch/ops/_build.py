@@ -75,7 +75,7 @@ def load_library() -> ctypes.CDLL:
         BUILD_LOG = _compile(path)
     lib = ctypes.CDLL(str(path))
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.npge_sw_xdrop.argtypes = [vp, ll, vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
+    lib.npge_sw_xdrop.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
     lib.npge_sw_xdrop.restype = i32
     lib.npge_cuda_error_string.argtypes = [i32]
     lib.npge_cuda_error_string.restype = ctypes.c_char_p

@@ -111,9 +111,12 @@ def sw_windows_plain(
 
 def _sw_windows_cuda(
     codes2, qb, qcap, tb, tcap, L, q_n_code, t_n_code, W,
-    match, mismatch, gap, xdrop,
+    match, mismatch, gap, xdrop, last=None,
 ):
-    """Launch ``csrc/sw_xdrop.cu`` on the current stream."""
+    """Launch ``csrc/sw_xdrop.cu`` on the current stream. ``last``, when
+    given (int32 [P] on the same device), receives each pair's last
+    computed anti-diagonal, from which a caller counts the cells these
+    inputs needed: W * (last + 1) per pair."""
     global SW_LAUNCHES
     from npge_tpu_torch.ops._build import load_library
 
@@ -125,6 +128,10 @@ def _sw_windows_cuda(
         abs(match), abs(mismatch), abs(gap)
     ) >= 1 << 20:
         raise ValueError("scores must be below 2^20 and 0 <= xdrop < 2^28")
+    if not (0 <= q_n_code < 256 and 0 <= t_n_code < 256):
+        raise ValueError("the N codes must fit in a byte")
+    if max(abs(match), abs(mismatch)) > 127:
+        raise ValueError("the CUDA kernel takes |match|, |mismatch| <= 127")
     if codes2.dtype != torch.uint8 or codes2.dim() != 1 or not codes2.is_contiguous():
         raise ValueError("codes2 must be a contiguous 1-D uint8 tensor")
     P = qb.shape[0]
@@ -136,6 +143,11 @@ def _sw_windows_cuda(
             raise ValueError(f"{name} must be {dt} [{P}] on {codes2.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if last is not None and (
+        last.device != codes2.device or last.dtype != torch.int32
+        or last.shape != (P,) or not last.is_contiguous()
+    ):
+        raise ValueError(f"last must be a contiguous int32 [{P}] on {codes2.device}")
     out = torch.empty((P, 3), dtype=torch.int32, device=codes2.device)
     if P == 0:
         return out
@@ -143,7 +155,8 @@ def _sw_windows_cuda(
     with torch.cuda.device(codes2.device):
         rc = lib.npge_sw_xdrop(
             codes2.data_ptr(), codes2.shape[0], qb.data_ptr(), tb.data_ptr(),
-            qcap.data_ptr(), tcap.data_ptr(), out.data_ptr(), P, L, W,
+            qcap.data_ptr(), tcap.data_ptr(), out.data_ptr(),
+            None if last is None else last.data_ptr(), P, L, W,
             match, mismatch, gap, xdrop, q_n_code, t_n_code,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -17,6 +17,7 @@ from npge_tpu.model.hashing import blockset_hash
 from npge_tpu.util.synthetic import synthetic_arena
 from npge_tpu_torch.cli import main
 from npge_tpu_torch.device import resolve_device, upload_arena
+from torch_carry import port_arena
 
 OPTS = ["-o", "ANCHOR_SIZE=17", "-o", "MIN_LENGTH=60", "-o", "MIN_END=3",
         "-o", "GAPPED_FLANK=64"]
@@ -45,6 +46,7 @@ def test_resolve_cuda_raises_without_gpu(no_gpu):
 
 def test_upload_arena_doubles_and_caches():
     arena = synthetic_arena(n_genomes=2, length=300, seed=1)
+    arena = port_arena(arena)
     codes, codes2 = upload_arena(arena, "cpu")
     T = arena.total_length
     assert codes2.dtype == torch.uint8 and codes2.shape == (2 * T,)

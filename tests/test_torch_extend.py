@@ -17,6 +17,7 @@ from npge_tpu_torch.algo.extender import extend_anchor_groups
 from npge_tpu_torch.ops.extend import (
     bases_for_groups, extend_chunk, extend_rounds, make_codes2,
 )
+from torch_carry import port_arena, port_config
 
 
 @pytest.mark.parametrize("split_tail", [False, True])
@@ -35,8 +36,9 @@ def test_candidates_match_reference(split_tail):
         want = ref_extender.extend_anchor_groups(arena, ref_groups, cfg)
     finally:
         ref_extender._SPLIT_TAIL_MIN_GROUPS[0] = old
-    groups = find_anchors(arena, cfg, "cpu")
-    got = extend_anchor_groups(arena, groups, cfg, "cpu")
+    parena, pcfg = port_arena(arena), port_config(cfg)
+    groups = find_anchors(parena, pcfg, "cpu")
+    got = extend_anchor_groups(parena, groups, pcfg, "cpu")
     assert len(want) > 100
     for attr in ("offsets", "seq", "start", "length", "ori"):
         np.testing.assert_array_equal(

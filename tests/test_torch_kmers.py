@@ -14,9 +14,11 @@ from npge_tpu.ops.kmers import find_anchor_occurrences as ref_occurrences
 from npge_tpu.util.synthetic import mutate, random_ancestor, synthetic_arena
 from npge_tpu_torch.algo.anchors import find_anchors
 from npge_tpu_torch.algo.pangenome import build_pangenome
+from npge_tpu_torch.model.hashing import blockset_hash as port_hash
 from npge_tpu_torch.ops.kmers import (
     _KEY_FILL, _KEY_FLOOR, find_anchor_occurrences, kmer_scan,
 )
+from torch_carry import port_arena, port_config
 
 # reference build of the k = 32 world below (3 x 5000 linear, seed 4)
 K32_HASH = 0x53EE0976D143B7A1
@@ -68,7 +70,7 @@ def test_find_anchors_matches_reference(kind, k, w):
     arena = _world(kind)
     cfg = default_config().replace(ANCHOR_SIZE=k, MINIMIZER_WINDOW=w)
     want = ref_find_anchors(arena, cfg)
-    got = find_anchors(arena, cfg, "cpu")
+    got = find_anchors(port_arena(arena), port_config(cfg), "cpu")
     assert want.n_groups > 0
     assert got.k == want.k
     for attr in ("offsets", "pos", "seq_id", "strand"):
@@ -164,7 +166,7 @@ def test_k32_build_matches_reference():
         ANCHOR_SIZE=32, MIN_LENGTH=60, MIN_END=3, GAPPED_FLANK=64, MAX_LOOPS=2
     )
     ref, _ = ref_build(arena, cfg)
-    got, tm = build_pangenome(arena, cfg, "cpu")
+    got, tm = build_pangenome(port_arena(arena), port_config(cfg), "cpu")
     assert tm.counters["gapext_pairs"] > 0
-    assert blockset_hash(got) == blockset_hash(ref) == K32_HASH
+    assert port_hash(got) == blockset_hash(ref) == K32_HASH
     assert len(got.blocks) == 16

@@ -13,6 +13,8 @@ from npge_tpu.model.blocks import BlockSet
 from npge_tpu.model.hashing import blockset_hash
 from npge_tpu.util.synthetic import synthetic_arena
 from npge_tpu_torch import meta
+from npge_tpu_torch.model.hashing import blockset_hash as port_hash
+from torch_carry import port_blockset, port_config
 
 
 @pytest.fixture(scope="module")
@@ -45,9 +47,9 @@ def test_stage_matches_reference(name, built, capsys):
     bs, cfg = built
     want = ref_meta.get(name)(_copy(bs), cfg)
     want_out = capsys.readouterr().out
-    got = meta.get(name)(_copy(bs), cfg, "cpu")
+    got = meta.get(name)(port_blockset(bs), port_config(cfg), "cpu")
     assert capsys.readouterr().out == want_out
-    assert blockset_hash(got) == blockset_hash(want)
+    assert port_hash(got) == blockset_hash(want)
     assert [b.name for b in got.blocks] == [b.name for b in want.blocks]
 
 
@@ -64,6 +66,6 @@ def test_run_script_rebinds_bs(built, tmp_path):
         "bs = meta.get('RemoveNames')(bs, cfg, device)\n"
         "bs = type(bs)(bs.arena, bs.blocks[:3])\n"
     )
-    out = meta.run_script(str(script), _copy(bs), cfg, "cpu")
+    out = meta.run_script(str(script), port_blockset(bs), port_config(cfg), "cpu")
     assert len(out.blocks) == 3
     assert all(b.name is None for b in out.blocks)

@@ -5,13 +5,15 @@ hashes, and a valid pangenome."""
 import numpy as np
 import pytest
 
-from npge_tpu.algo.is_pangenome import check_is_pangenome
 from npge_tpu.algo.pangenome import build_pangenome as ref_build
 from npge_tpu.config import default_config
 from npge_tpu.model.arena import GenomeArena
 from npge_tpu.model.hashing import blockset_hash
 from npge_tpu.util.synthetic import synthetic_arena
+from npge_tpu_torch.algo.is_pangenome import check_is_pangenome
 from npge_tpu_torch.algo.pangenome import build_pangenome
+from npge_tpu_torch.model.hashing import blockset_hash as port_hash
+from torch_carry import port_arena, port_config
 
 # hash of the 5 x 20 kb circular world recorded by the JAX package's
 # 8-device dry run (equal to its single-device build)
@@ -67,14 +69,14 @@ def test_build_matches_reference(world):
     arena, cfg = WORLDS[world]()
     assert cfg.GAPPED_EXTEND
     ref, _ = ref_build(arena, cfg)
-    got, tm = build_pangenome(arena, cfg, "cpu")
+    got, tm = build_pangenome(port_arena(arena), port_config(cfg), "cpu")
     assert tm.counters["gapext_pairs"] > 0  # the SW pass ran
     assert tm.counters["gapext.sw_launches"] == 0  # plain version on CPU
-    rep = check_is_pangenome(got, cfg)
+    rep = check_is_pangenome(got, port_config(cfg))
     assert rep.ok, rep.messages
     if world == "multichip":
-        assert blockset_hash(got) == MULTICHIP_HASH
+        assert port_hash(got) == MULTICHIP_HASH
     assert sum(1 for b in got.blocks if not b.is_gapless) > 0
     ref.canonicalize()
     got.canonicalize()
-    assert blockset_hash(got) == blockset_hash(ref)
+    assert port_hash(got) == blockset_hash(ref)
