@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of npge_tpu_torch on one NVIDIA GPU: the default builds, the
-deep IsPangenome probe, every CLI verb and k = 32, end to end, through the
-hand-written CUDA kernel.
+mesh and two-process builds, the deep IsPangenome probe, every CLI verb and
+k = 32, end to end, through the hand-written CUDA kernel.
 
     python3 chip_smoke.py [--ab-parent OLD/sw_xdrop.cu]
 
@@ -20,15 +20,25 @@ Phases (each prints its lines; any failure exits non-zero):
      SW entry point is recorded;
   6. the deep IsPangenome probe on that blockset, called directly (no
      build-time memo): its verdict against the reference's, its wall and
-     its scan and extension seconds; then the probe on a 3 x 6 kb build
-     without re-seeding, where it must find the reference's 80 hits;
+     its scan and extension seconds;
+  6a. mesh builds of the 5 x 20 kb and 17 x 1 Mbp worlds over 4 shards on
+     card 0, and over the distinct cards where there are two or more:
+     hashes, the IsPangenome check and SW launches;
+  6b. the 17 x 1 Mbp build split over two spawned processes of one gloo
+     group, each on cuda:(rank % card count): both hashes, each rank's SW
+     launches and its share of the SW pairs; then the stage seconds of the
+     single-device, mesh and per-rank builds side by side;
+  6c. the deep probe on a 3 x 6 kb build without re-seeding, where it must
+     find the reference's 80 hits;
   7. the 50 x 300 kb world with the default config, as phase 5;
   8. the CLI on the 5 x 20 kb world in a temporary work dir: make-pangenome,
-     hash, run MakePangenome, check --deep (the probe; then the build-time
+     hash, make-pangenome --devices 2 (refused with fewer than two cards),
+     run MakePangenome, check --deep (the probe; then the build-time
      memo and, with a changed config, the probe again after a build that
      records its proof), run Pangenome, processors, post-processing, report
      and info;
-  9. a k = 32 build of a small linear world against the reference's hash;
+  9. a k = 32 build of a small linear world against the reference's hash,
+     and 2-bit packing of the 17 x 1 Mbp codes on the card;
  10. every recorded SW batch of phases 5 and 7 replayed: the kernel against
      its plain version exactly, the kernel's time by CUDA events, the cells
      the batch needs and the bound on them.
@@ -36,7 +46,8 @@ With ``--ab-parent``, an earlier sw_xdrop.cu is built beside this one and
 timed in turns with it (parent, new, new, parent) in phases 3 and 10.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and the line before that lists each
-kernel with its launches in phase 5 (and phases 7-9) and its times.
+kernel with its launches in phase 5 (and phases 6a, 6b per rank, 7-9) and
+its times.
 """
 
 from __future__ import annotations
@@ -453,7 +464,7 @@ def phase_small_world() -> None:
 def phase_world(tag: str, world: dict, codes_sha256: str, pinned: int):
     """The default build of a pinned world through the recorded SW entry
     point; returns its kernel launches, recorded batches, the canonical
-    blockset and the config."""
+    blockset, the config and the stage timings."""
     import torch
 
     from npge_tpu_torch import (
@@ -478,6 +489,7 @@ def phase_world(tag: str, world: dict, codes_sha256: str, pinned: int):
         wall = time.perf_counter() - t0
         launches = sw.SW_LAUNCHES
     print(tm.report(), flush=True)
+    tm.add("wall", wall)
     print(f"[{tag}] wall {wall:.2f} s; sw pairs "
           f"{tm.counters.get('gapext_pairs', 0)}, sw launches {launches}, "
           f"batches {[len(b[1]) for b in rec.batches]}", flush=True)
@@ -492,7 +504,7 @@ def phase_world(tag: str, world: dict, codes_sha256: str, pinned: int):
         fail(f"{tag} IsPangenome: {rep.messages}")
     if launches <= 0 or launches != len(rec.batches):
         fail(f"{tag} build: {launches} SW launches, {len(rec.batches)} batches")
-    return launches, rec.batches, bs, cfg
+    return launches, rec.batches, bs, cfg, tm
 
 
 def phase_deep(bs, cfg) -> None:
@@ -564,7 +576,8 @@ def phase_cli() -> int:
     opts = [a for k, v in SMALL_CFG.items() for a in ("-o", f"{k}={v}")]
     work = tempfile.mkdtemp(prefix="npge_smoke_")
 
-    def run(*argv) -> tuple[str, str]:
+    def run(*argv, refused: bool = False) -> tuple[str, str]:
+        """One verb; it must exit 0, or non-zero when ``refused``."""
         out, err = io.StringIO(), io.StringIO()
         code = 0
         t0 = time.perf_counter()
@@ -577,7 +590,7 @@ def phase_cli() -> int:
         wall = time.perf_counter() - t0
         label = " ".join(argv).replace(" ".join(opts), "<opts>")
         print(f"[cli] {label}: exit {code}, wall {wall:.3f} s", flush=True)
-        if code not in (0, None):
+        if (code not in (0, None)) != refused:
             fail(f"cli {argv}: exit {code}\n{out.getvalue()[-2000:]}"
                  f"{err.getvalue()[-2000:]}")
         return out.getvalue(), err.getvalue()
@@ -591,6 +604,14 @@ def phase_cli() -> int:
         out, _ = run("hash")
         if out.strip() != f"{SMALL_HASH:016x}":
             fail(f"cli hash {out.strip()} != {SMALL_HASH:016x}")
+        # --devices 2: a real error with fewer than 2 cards, else the
+        # single-device hash over the first two cards
+        few = torch.cuda.device_count() < 2
+        run("make-pangenome", "--device", "cuda", "--devices", "2", *opts,
+            refused=few)
+        out, _ = run("hash")
+        if out.strip() != f"{SMALL_HASH:016x}":
+            fail(f"cli hash after --devices 2: {out.strip()} != {SMALL_HASH:016x}")
         run("run", "MakePangenome", "--device", "cuda", "--stage-name",
             "again", *opts)
         out, _ = run("hash", "--stage", "again")
@@ -663,6 +684,217 @@ def phase_k32() -> int:
     return sw.SW_LAUNCHES
 
 
+def mesh_build(tag: str, arena, cfg, mesh, pinned: int):
+    """One build over ``mesh`` (device = its first device): hash, the
+    IsPangenome check and SW launches; returns (launches, timings)."""
+    import torch
+
+    from npge_tpu_torch import blockset_hash, build_pangenome, check_is_pangenome
+    from npge_tpu_torch.ops import sw
+
+    sw.SW_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs, tm = build_pangenome(arena, cfg, mesh.devices[0], mesh=mesh)
+    for d in dict.fromkeys(mesh.devices):
+        torch.cuda.synchronize(d)
+    wall = time.perf_counter() - t0
+    launches = sw.SW_LAUNCHES
+    rep = check_is_pangenome(bs, cfg)
+    bs.canonicalize()
+    h = blockset_hash(bs)
+    print(f"[mesh] {tag} over {mesh}: {len(bs.blocks)} blocks, canonical "
+          f"hash {h:#x}, IsPangenome {rep.ok}, sw launches {launches}, wall "
+          f"{wall:.2f} s", flush=True)
+    if h != pinned:
+        fail(f"{tag} mesh build hash {h:#x} != {pinned:#x}")
+    if not rep.ok:
+        fail(f"{tag} mesh build IsPangenome: {rep.messages}")
+    if launches <= 0:
+        fail(f"{tag} mesh build launched no SW kernel")
+    tm.add("wall", wall)
+    return launches, tm
+
+
+def phase_mesh():
+    """Mesh builds of the 5 x 20 kb and 17 x 1 Mbp worlds over 4 shards on
+    card 0 (written out: a mesh that repeats a card is never made on its
+    own), and over the distinct cards where there are two or more. Returns
+    (mesh, SW launches, stage timings) of each 17 x 1 Mbp build, the
+    4-shard one first."""
+    import torch
+
+    from npge_tpu_torch import default_config, synthetic_arena
+    from npge_tpu_torch.parallel.mesh import DeviceMesh, make_mesh
+
+    small_cfg = default_config().replace(**SMALL_CFG)
+    meshes = [DeviceMesh([torch.device("cuda", 0)] * 4)]
+    count = torch.cuda.device_count()
+    if count >= 2:
+        meshes.append(make_mesh(count, "cuda"))
+    else:
+        print(f"[mesh] {count} card visible: no mesh over distinct cards",
+              flush=True)
+    big = synthetic_arena(**BIG_WORLD)
+    out = []
+    for mesh in meshes:
+        mesh_build("5x20kb circular", small_world(), small_cfg, mesh, SMALL_HASH)
+        out.append((mesh, *mesh_build("17x1Mbp", big, default_config(), mesh,
+                                      BIG_HASH)))
+    return out
+
+
+def mp_rank(rank: int, size: int, init: str, queue) -> None:
+    """One rank of the multi-process 17 x 1 Mbp build (a spawned process):
+    a gloo group, the build on cuda:(rank % card count); puts its result
+    dict on ``queue``."""
+    import datetime
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        from npge_tpu_torch import (
+            blockset_hash, build_pangenome, check_is_pangenome,
+            default_config, synthetic_arena,
+        )
+        from npge_tpu_torch.ops import sw
+
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        dist.init_process_group(
+            "gloo", init_method=init, world_size=size, rank=rank,
+            timeout=datetime.timedelta(seconds=300),
+        )
+        arena = synthetic_arena(**BIG_WORLD)
+        cfg = default_config()
+        sw.SW_LAUNCHES = 0
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        bs, tm = build_pangenome(arena, cfg, dev)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        launches = sw.SW_LAUNCHES
+        dist.destroy_process_group()
+        rep = check_is_pangenome(bs, cfg)
+        bs.canonicalize()
+        tm.add("wall", wall)
+        queue.put({
+            "rank": rank, "device": str(dev), "hash": blockset_hash(bs),
+            "blocks": len(bs.blocks), "ok": rep.ok, "launches": launches,
+            "seconds": tm.seconds, "counters": tm.counters,
+            "jax": [m for m in ("jax", "npge_tpu") if m in sys.modules],
+        })
+    except BaseException:
+        queue.put({"rank": rank, "error": traceback.format_exc()})
+        raise
+
+
+def phase_mp(size: int = 2) -> list:
+    """The 17 x 1 Mbp build split over ``size`` spawned processes of one
+    gloo group, each on cuda:(rank % card count): every rank must give the
+    pinned hash, launch the SW kernel on its own share of the pairs, and
+    the shares must sum to the total. Returns the ranks' result dicts."""
+    import multiprocessing
+    import queue as queue_mod
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    procs = [
+        ctx.Process(target=mp_rank, args=(r, size, f"tcp://localhost:{port}", q))
+        for r in range(size)
+    ]
+    for p in procs:
+        p.start()
+    results = []
+    try:
+        for _ in range(size):
+            try:
+                results.append(q.get(timeout=600))
+            except queue_mod.Empty:
+                fail(f"{size}-process build: a rank gave no result in 600 s")
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    results.sort(key=lambda r: r["rank"])
+    for r in results:
+        if "error" in r:
+            fail(f"rank {r['rank']} failed:\n{r['error']}")
+    for p in procs:
+        if p.exitcode != 0:
+            fail(f"a rank exited with {p.exitcode}")
+    total = results[0]["counters"].get("gapext_pairs", 0)
+    for r in results:
+        c = r["counters"]
+        print(f"[mp] rank {r['rank']}/{size} on {r['device']}: {r['blocks']} "
+              f"blocks, canonical hash {r['hash']:#x}, IsPangenome {r['ok']}, "
+              f"sw launches {r['launches']}, sw pairs owned "
+              f"{c.get('mp.gapext_pairs_owned', 0)} of "
+              f"{c.get('gapext_pairs', 0)}, extension groups owned "
+              f"{c.get('mp.extend_groups_owned', 0)} of "
+              f"{c.get('mp.extend_groups_total', 0)} (re-seed "
+              f"{c.get('mp.reseed.extend_groups_owned', 0)} of "
+              f"{c.get('mp.reseed.extend_groups_total', 0)}), wall "
+              f"{r['seconds']['wall']:.2f} s, gathers "
+              f"{r['seconds'].get('mp.gather', 0.0):.4f} s", flush=True)
+        if r["jax"]:
+            fail(f"rank {r['rank']} imported {r['jax']}")
+        if r["hash"] != BIG_HASH or not r["ok"]:
+            fail(f"rank {r['rank']}: hash {r['hash']:#x} (want {BIG_HASH:#x}), "
+                 f"IsPangenome {r['ok']}")
+        if r["launches"] <= 0:
+            fail(f"rank {r['rank']} launched no SW kernel")
+        if not 0 < c.get("mp.gapext_pairs_owned", 0) < total:
+            fail(f"rank {r['rank']} owns no real share of the SW pairs: {c}")
+        if c.get("gapext_pairs") != total:
+            fail("the ranks disagree on the SW pair total")
+    owned = sum(r["counters"]["mp.gapext_pairs_owned"] for r in results)
+    if owned != total:
+        fail(f"SW pairs owned by the ranks sum to {owned}, not {total}")
+    return results
+
+
+def print_stage_table(cols: dict) -> None:
+    """Stage seconds of several builds side by side (one column each)."""
+    names = list(dict.fromkeys(k for tm in cols.values() for k in tm))
+    print("[stages] " + " | ".join(["stage (s)", *cols]), flush=True)
+    for k in names:
+        print("[stages] " + " | ".join(
+            [k, *(f"{tm.get(k, 0.0):.3f}" for tm in cols.values())]
+        ), flush=True)
+
+
+def phase_pack() -> None:
+    """2-bit packing of the 17 x 1 Mbp codes on the card: equal to the CPU
+    result and round-tripping."""
+    import torch
+
+    from npge_tpu_torch import synthetic_arena
+    from npge_tpu_torch.ops.pack import pack2, unpack2
+
+    codes = torch.from_numpy(synthetic_arena(**BIG_WORLD).codes).clone()
+    codes[::4099] = 4  # N codes too
+    packed, mask = pack2(codes.cuda())
+    want, want_mask = pack2(codes)
+    back = unpack2(packed, mask).cpu()
+    ok = (torch.equal(packed.cpu(), want) and torch.equal(mask.cpu(), want_mask)
+          and torch.equal(back, codes))
+    print(f"[pack] {codes.shape[0]} codes -> {packed.shape[0]} uint32 words "
+          f"on {packed.device}: equal to the CPU and round-trips: {ok}",
+          flush=True)
+    if not ok:
+        fail("pack2 / unpack2 on the card disagree with the CPU")
+
+
 def main() -> None:
     import argparse
 
@@ -682,17 +914,26 @@ def main() -> None:
     parent = build_parent_kernel(opts.ab_parent) if opts.ab_parent else None
     kern = phase_kernel(parent)
     phase_small_world()
-    launches, batches, bs, cfg = phase_world(
+    launches, batches, bs, cfg, tm_single = phase_world(
         "17x1Mbp", BIG_WORLD, BIG_CODES_SHA256, BIG_HASH
     )
     phase_deep(bs, cfg)
     del bs
+    meshes = phase_mesh()
+    launches_mesh = meshes[0][1]
+    ranks = phase_mp()
+    print_stage_table({
+        "17x1Mbp single device": tm_single.seconds,
+        **{f"mesh {m}": tm.seconds for m, _, tm in meshes},
+        **{f"rank {r['rank']} of 2": r["seconds"] for r in ranks},
+    })
     phase_deep_hits()
-    launches_50, batches_50, _, _ = phase_world(
+    launches_50, batches_50, _, _, _ = phase_world(
         "50x300kb", W50_WORLD, W50_CODES_SHA256, W50_HASH
     )
     launches_cli = phase_cli()
     launches_k32 = phase_k32()
+    phase_pack()
     rows = replay_batches("17x1Mbp", batches, parent)
     rows += replay_batches("50x300kb", batches_50, parent)
     for mod in ("jax", "npge_tpu"):
@@ -708,6 +949,8 @@ def main() -> None:
         "launches_50x300kb": launches_50,
         "launches_cli": launches_cli,
         "launches_k32": launches_k32,
+        "launches_mesh": launches_mesh,
+        "launches_mp": [r["launches"] for r in ranks],
         "max_abs_err": main_shape["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],

@@ -11,9 +11,14 @@ the port as numpy arrays and text.
   - ``device``  explicit device resolution and the arena upload
   - ``ops``     device compute: k-mer scan (``kmers``), gapless lockstep
                 extension (``extend``), banded-SW x-drop (``sw``, a CUDA
-                kernel for sm_90a, built at first use by ``_build``)
-  - ``algo``    every stage of ``make-pangenome`` and post-processing, and
-                the IsPangenome check with its deep probe
+                kernel for sm_90a, built at first use by ``_build``), 2-bit
+                packing (``pack``)
+  - ``parallel`` a device mesh in one process (``mesh``, ``sharded``) and
+                a build split across a ``torch.distributed`` group of
+                processes (``distributed``, gloo gathers)
+  - ``algo``    every stage of ``make-pangenome`` and post-processing, the
+                IsPangenome check with its deep probe, and gene mapping
+                (``genes``)
   - ``meta``    the processor registry (``run``, ``processors``, ``shell``)
   - ``cli``     every verb of ``npge_tpu.cli``, with ``--device``
 """

@@ -16,11 +16,14 @@ import torch
 
 from npge_tpu_torch.algo.anchors import AnchorGroups
 from npge_tpu_torch.config import Config
-from npge_tpu_torch.device import upload_arena
+from npge_tpu_torch.device import resolve_device, upload_arena
 from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.model.blocks import Block
 from npge_tpu_torch.model.fragments import FragmentTable
 from npge_tpu_torch.ops.extend import bases_for_groups, extend_rounds
+from npge_tpu_torch.parallel.distributed import (
+    allgather, host_slice, multiprocess, process_index_count,
+)
 from npge_tpu_torch.util.csr import csr_gather
 
 # target element budget per (B, F, S) window gather of one side; both sides
@@ -138,15 +141,31 @@ def extend_anchor_groups(
     device,
     timings=None,
     counter_prefix: str = "extend",
+    mesh=None,
 ) -> CandidateBatch:
     """Extend all groups on ``device`` (over the arena's cached doubled
     codes, see ``device.upload_arena``); return the columnar CandidateBatch
     of gapless candidates (one per group) in group order. ``timings``
-    (StageTimings) receives the ``<counter_prefix>_cells`` counter."""
+    (StageTimings) receives the ``<counter_prefix>_cells`` counter.
+
+    With ``mesh`` (a ``parallel.mesh.DeviceMesh``) every stacked batch is
+    split into contiguous row slices, one per mesh device, each extended
+    over that device's copy of the arena; the cells counter takes the most
+    rounds of any slice, which is what the whole batch runs. In a process
+    group of more than one rank (and no mesh) each process extends a
+    contiguous slice of every F-bucket's groups, books
+    ``mp.<counter_prefix>_groups_total`` and ``_owned``, and the per-group
+    lengths are summed over the processes. Both give the single-device
+    result: the freeze rule makes each group's result independent of its
+    batch."""
     if groups.n_groups == 0:
         return CandidateBatch.empty()
-    codes2 = upload_arena(arena, device)[1]
-    dev = codes2.device
+    shards = (
+        mesh.slices if mesh is not None
+        else lambda n: [(resolve_device(device), 0, n)]
+    )
+    proc_shard = mesh is None and multiprocess()
+    pi, pc = process_index_count()
     T = arena.total_length
     k = groups.k
     cap_l, cap_r, bad_group = _compute_caps(groups, arena)
@@ -163,6 +182,12 @@ def extend_anchor_groups(
         sel = gids[
             (sizes <= fb) & (sizes > (fb // 2 if fb > 2 else 1)) & ~bad_group
         ]
+        if proc_shard:
+            a0, a1 = host_slice(len(sel), pi, pc)
+            if timings is not None:
+                timings.count(f"mp.{counter_prefix}_groups_total", len(sel))
+                timings.count(f"mp.{counter_prefix}_groups_owned", a1 - a0)
+            sel = sel[a0:a1]
         b_cap = max(256, _ELEM_BUDGET // (fb * chunk))
         for i0 in range(0, len(sel), b_cap):
             batch = sel[i0 : i0 + b_cap]
@@ -181,15 +206,21 @@ def extend_anchor_groups(
             base_l, base_r = bases_for_groups(lo, lo + k, ori, T)
             # left/right are independent problems: one stacked batch
             B = len(batch)
-            base2 = torch.from_numpy(np.concatenate([base_l, base_r])).to(dev)
-            cap2 = torch.from_numpy(
-                np.concatenate([cl, cr]).astype(np.int32)
-            ).to(dev)
-            fm2 = torch.from_numpy(np.concatenate([valid, valid])).to(dev)
-            total, rounds = extend_rounds(
-                codes2, base2, fm2, cap2, num, den, chunk, max_rounds
-            )
-            total = total.cpu().numpy()
+            base2 = torch.from_numpy(np.concatenate([base_l, base_r]))
+            cap2 = torch.from_numpy(np.concatenate([cl, cr]).astype(np.int32))
+            fm2 = torch.from_numpy(np.concatenate([valid, valid]))
+            total = np.zeros(2 * B, np.int32)
+            rounds = 0
+            for dev, r0, r1 in shards(2 * B):
+                if r0 == r1:
+                    continue
+                tot, r = extend_rounds(
+                    upload_arena(arena, dev)[1], base2[r0:r1].to(dev),
+                    fm2[r0:r1].to(dev), cap2[r0:r1].to(dev),
+                    num, den, chunk, max_rounds,
+                )
+                total[r0:r1] = tot.cpu().numpy()
+                rounds = max(rounds, r)
             results_l[batch] = total[:B]
             results_r[batch] = total[B:]
             if timings is not None:
@@ -198,6 +229,11 @@ def extend_anchor_groups(
                     f"{counter_prefix}_cells",
                     2 * int(valid.sum()) * rounds * chunk,
                 )
+    if proc_shard:
+        # owned entries are exclusive per process, the rest zero: sum merge
+        g = allgather(np.stack([results_l, results_r]), timings)
+        results_l = g[:, 0].sum(axis=0).astype(np.int32)
+        results_r = g[:, 1].sum(axis=0).astype(np.int32)
 
     # build the columnar candidate batch in one vectorized pass
     kept = np.flatnonzero(~bad_group)

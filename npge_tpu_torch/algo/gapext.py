@@ -22,6 +22,9 @@ from npge_tpu_torch.model.fragindex import FragmentIndex
 from npge_tpu_torch.model.fragments import FragmentTable
 from npge_tpu_torch.model.stats import column_classes
 from npge_tpu_torch.ops import sw as sw_ops
+from npge_tpu_torch.parallel.distributed import (
+    allgather, host_slice, multiprocess, process_index_count,
+)
 from npge_tpu_torch.util import codes as C
 
 
@@ -348,12 +351,29 @@ def gapped_extend_blocks(
     tcap = np.concatenate([cap[1:] for (_b, _s, cap, *_r) in jobs])
     adv = np.full(len(jobs), np.int64(1) << 40)
     launches = sw_ops.SW_LAUNCHES
+    n_all = len(qb)
+    # in a process group of more than one rank each process runs SW on a
+    # contiguous slice of the pair list, and the endpoint rows are gathered
+    # in rank order: the pair list is the same on every process, so the
+    # merged ends are the single-process ends
+    split = multiprocess()
+    pi, pc = process_index_count()
+    a0, a1 = host_slice(n_all, pi, pc) if split else (0, n_all)
     ends = sw_ops.sw_extend_windows(
-        upload_arena(arena, device)[1], qb, qcap, tb, tcap, L=FL, **sw
+        upload_arena(arena, device)[1], qb[a0:a1], qcap[a0:a1], tb[a0:a1],
+        tcap[a0:a1], L=FL, **sw
     ).cpu().numpy()
+    if split:
+        buf = np.zeros((-(-n_all // pc), 3), np.int32)
+        buf[: len(ends)] = ends
+        g = allgather(buf, timings)  # [pc, cap_rows, 3]
+        spans = [host_slice(n_all, r, pc) for r in range(pc)]
+        ends = np.concatenate([g[r, : b - a] for r, (a, b) in enumerate(spans)])
+        if timings is not None:
+            timings.count("mp.gapext_pairs_owned", a1 - a0)
     np.minimum.at(adv, owner, ends[:, 1].astype(np.int64))
     if timings is not None:
-        timings.count("gapext_pairs", len(qb))
+        timings.count("gapext_pairs", n_all)
         timings.count("gapext.sw_launches", sw_ops.SW_LAUNCHES - launches)
     _t = _book("sw", _t)
 

@@ -1,11 +1,13 @@
 """Pangenome construction pipeline — the main orchestration loop.
 
 Counterpart of ``npge_tpu/algo/pangenome.py:build_pangenome`` on one
-device and one process: anchors and gapless extension on the device, greedy
-overlap resolution, Joiner, gapped flank extension (SW on the device), then
-the consensus re-seed fixed-point loop, Rest and names. Same stage books,
-k schedule, revert rule, cache sweep and ``deep.proven_at_kmin`` exits as
-the reference, so the blockset hash is the reference's.
+device, a device mesh or the processes of a ``torch.distributed`` group
+(``npge_tpu_torch.parallel``): anchors and gapless extension on the
+device, greedy overlap resolution, Joiner, gapped flank extension (SW on
+the device), then the consensus re-seed fixed-point loop, Rest and names.
+Same stage books, k schedule, revert rule, cache sweep and
+``deep.proven_at_kmin`` exits as the reference, so the blockset hash is
+the reference's.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass, field
 
-from npge_tpu_torch.algo.anchors import find_anchors
+from npge_tpu_torch.algo.anchors import AnchorGroups, find_anchors
 from npge_tpu_torch.algo.conseq import consensus_arena, deconseq
 from npge_tpu_torch.algo.extender import extend_anchor_groups
 from npge_tpu_torch.algo.gapext import gapped_extend_blocks
@@ -27,6 +29,11 @@ from npge_tpu_torch.model.blocks import BlockSet
 from npge_tpu_torch.model.hashing import blockset_hash
 from npge_tpu_torch.model.naming import assign_names
 from npge_tpu_torch.device import resolve_device, upload_arena
+from npge_tpu_torch.parallel.distributed import (
+    multihost_find_anchors, multiprocess,
+)
+from npge_tpu_torch.parallel.mesh import DeviceMesh
+from npge_tpu_torch.parallel.sharded import sharded_find_anchors
 
 
 # mirrors npge_tpu/algo/pangenome.py:StageTimings
@@ -58,29 +65,51 @@ class StageTimings:
 
 # mirrors npge_tpu/algo/pangenome.py:build_pangenome
 def build_pangenome(
-    arena: GenomeArena, cfg: Config, device, verbose: bool = False
+    arena: GenomeArena, cfg: Config, device, verbose: bool = False,
+    mesh: DeviceMesh | None = None,
 ) -> tuple[BlockSet, StageTimings]:
     """Pangenome construction on ``device`` ("cuda" or "cpu"). Stage wall
     times are host clocks; device work is synchronized by each stage's
-    readback."""
+    readback.
+
+    With ``mesh`` (whose first device must be ``device``) the first anchor
+    scan is position-sharded and every extension batch is split over the
+    mesh; the other device stages (gapext, re-seed scans) run on
+    ``device``, as in the reference. In a process group of more than one
+    rank (and no mesh) every anchor scan, extension and SW pass is split
+    across the processes (``parallel.distributed``) and the host stages run
+    on every process. Either gives the single-device blockset."""
     dev = resolve_device(device)
+    if mesh is not None and mesh.devices[0] != dev:
+        raise ValueError(f"device {dev} is not the mesh's first device ({mesh})")
+    multiproc = mesh is None and multiprocess()
+    devices = list(dict.fromkeys(mesh.devices)) if mesh is not None else [dev]
     t = StageTimings()
 
     def log(msg: str) -> None:
         if verbose:
             print(msg, flush=True)
 
+    def scan(a: GenomeArena, k: int) -> AnchorGroups:
+        if multiproc:
+            return multihost_find_anchors(a, cfg, dev, k=k, timings=t)
+        return find_anchors(a, cfg, dev, k=k)
+
     t0 = time.perf_counter()
-    upload_arena(arena, dev)  # cached on the arena for the stages below
+    for d in devices:  # cached on the arena for the stages below
+        upload_arena(arena, d)
     t.add("upload", time.perf_counter() - t0)
 
     t0 = time.perf_counter()
-    groups = find_anchors(arena, cfg, dev)
+    if mesh is not None:
+        groups = sharded_find_anchors(arena, cfg, mesh)
+    else:
+        groups = scan(arena, cfg.ANCHOR_SIZE)
     t.add("anchors", time.perf_counter() - t0)
     log(f"anchors: {groups.n_groups} groups, {len(groups.pos)} occurrences")
 
     t0 = time.perf_counter()
-    cand = extend_anchor_groups(arena, groups, cfg, dev, timings=t)
+    cand = extend_anchor_groups(arena, groups, cfg, dev, timings=t, mesh=mesh)
     t.add("extend", time.perf_counter() - t0)
     log(f"extend: {len(cand)} candidate blocks")
 
@@ -173,15 +202,16 @@ def build_pangenome(
         t.add("reseed.occ", time.perf_counter() - t0)
         t0 = time.perf_counter()
         cons, src = consensus_arena(full, cons_cache, stats=t.counters)
-        upload_arena(cons, dev)
+        for d in devices:
+            upload_arena(cons, d)
         t.add("reseed.cons", time.perf_counter() - t0)
         t0 = time.perf_counter()
-        groups = find_anchors(cons, cfg, dev, k=k)
+        groups = scan(cons, k)
         t.add("reseed.scan", time.perf_counter() - t0)
         t0 = time.perf_counter()
         cand_cons = extend_anchor_groups(
             cons, groups, cfg, dev, timings=t,
-            counter_prefix="reseed.extend",
+            counter_prefix="reseed.extend", mesh=mesh,
         )
         t.add("reseed.extend.ext", time.perf_counter() - t0)
         t0d = time.perf_counter()

@@ -3,7 +3,7 @@
     python -m npge_tpu_torch.cli prepare --fasta a.fa b.fa [--genomes G.tsv] -w WORK
     python -m npge_tpu_torch.cli examine -w WORK
     python -m npge_tpu_torch.cli make-pangenome -w WORK [--device cuda|cpu]
-        [-o KEY=VALUE ...] [--config C.json] [--timing]
+        [--devices N] [-o KEY=VALUE ...] [--config C.json] [--timing]
     python -m npge_tpu_torch.cli check -w WORK [--deep] [--device cuda|cpu]
     python -m npge_tpu_torch.cli post-processing|info|hash|report -w WORK
     python -m npge_tpu_torch.cli run NAME|script.py -w WORK [--stage-name S]
@@ -70,6 +70,26 @@ def _device(args):
         return resolve_device(args.device)
     except (RuntimeError, ValueError) as e:
         raise SystemExit(f"{args.cmd}: {e}")
+
+
+def _mesh(args, dev):
+    """The mesh of ``--devices N``: N shards on the host with ``--device
+    cpu``, the first N cards with ``--device cuda``; exits non-zero when
+    fewer cards are visible or ``--device`` is not the first of them."""
+    from npge_tpu_torch.parallel.mesh import DeviceMesh, make_mesh
+
+    if dev.type == "cpu":
+        return DeviceMesh([dev] * args.devices)
+    try:
+        mesh = make_mesh(args.devices, "cuda")
+    except ValueError as e:
+        raise SystemExit(f"{args.cmd}: --devices {args.devices}: {e}")
+    if mesh.devices[0] != dev:
+        raise SystemExit(
+            f"{args.cmd}: --devices {args.devices} starts at {mesh.devices[0]}, "
+            f"not at --device {dev}"
+        )
+    return mesh
 
 
 # mirrors npge_tpu/cli.py:cmd_prepare
@@ -209,11 +229,14 @@ def cmd_make_pangenome(args) -> None:
     from npge_tpu_torch.algo.pangenome import build_pangenome
 
     dev = _device(args)
+    mesh = _mesh(args, dev) if args.devices else None
     cfg = _load_cfg(args)
     src = load_stage(args.workdir, "input")
     if src is None:
         raise SystemExit(f"no input.bs under {args.workdir}; run prepare first")
-    bs, timings = build_pangenome(src.arena, cfg, dev, verbose=args.verbose)
+    bs, timings = build_pangenome(
+        src.arena, cfg, dev, verbose=args.verbose, mesh=mesh
+    )
     rep = check_is_pangenome(bs, cfg)
     extra = {}
     if timings.counters.get("deep.proven_at_kmin"):
@@ -401,6 +424,12 @@ def main(argv=None) -> None:
             sp.add_argument("--verbose", action="store_true")
             sp.add_argument("--timing", action="store_true",
                             help="print per-stage wall times")
+            sp.add_argument(
+                "--devices", type=int, default=0,
+                help="shard the scan and the extension over N devices of "
+                     "--device's kind: the first N cards, or N shards on "
+                     "the CPU",
+            )
         if name == "check":
             sp.add_argument("--deep", action="store_true",
                             help="also verify re-seeding finds no new hits")

@@ -27,7 +27,7 @@ class Config:
     MAX_ANCHOR_FRAGMENTS: int = 256  # drop k-mer groups bigger than this (repeat guard; our knob)
     MAX_JOIN_GAP: int = 100        # max per-fragment gap bridged by Joiner [C]
     STICK_MAX_SHIFT: int = 20      # max boundary overlap Stick snaps away [C]
-    WORKERS: int = 1               # kept for CLI parity; parallelism is jit/mesh, not threads
+    WORKERS: int = 1               # kept for CLI parity; parallelism is parallel/ (a device mesh, a process group), not threads
 
     # ---- engine knobs (no reference equivalent; TPU-native design) ----
     MINIMIZER_WINDOW: int = 8      # (w,k)-minimizer sampling window; 1 = sample every k-mer

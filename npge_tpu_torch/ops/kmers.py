@@ -110,13 +110,24 @@ def minimizer_mask(key: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tens
 
 
 # mirrors npge_tpu/ops/kmers.py:_sid_from_offsets
-def _sid_from_offsets(offsets: np.ndarray, T: int, device) -> torch.Tensor:
-    """int32 sequence id per position from the offsets table; positions at
-    or past offsets[-1] get -1."""
-    pos = torch.arange(T, dtype=torch.int64, device=device)
+def _sid_from_offsets(
+    offsets: np.ndarray, T: int, device, start: int = 0
+) -> torch.Tensor:
+    """int32 sequence id of positions start .. start+T-1 from the offsets
+    table; positions at or past offsets[-1] get -1."""
+    pos = torch.arange(start, start + T, dtype=torch.int64, device=device)
     off = torch.as_tensor(np.asarray(offsets, np.int64), device=device)
     sid = torch.searchsorted(off, pos, right=True) - 1
     return torch.where(pos >= off[-1], -1, sid).to(torch.int32)
+
+
+def select_occurrences(codes: torch.Tensor, seq_id_of: torch.Tensor, k: int, w: int):
+    """Scan -> minimizer sample: (key int64, idx int64, strand int8)
+    tensors of the sampled valid non-palindromic occurrences, in ascending
+    position order (idx indexes ``codes``)."""
+    key, strand, valid = kmer_scan(codes, seq_id_of, k)
+    idx = torch.nonzero(minimizer_mask(key, valid, w) & (strand != 0))[:, 0]
+    return key[idx], idx, strand[idx]
 
 
 # mirrors npge_tpu/ops/kmers.py:find_anchor_occurrences (its CPU branch)
@@ -144,12 +155,9 @@ def find_anchor_occurrences(
         seq_id_of = _sid_from_offsets(offsets, T, codes.device)
     else:
         seq_id_of = torch.as_tensor(seq_id_of, device=codes.device)
-    key, strand, valid = kmer_scan(codes, seq_id_of, k)
-    sel = minimizer_mask(key, valid, w) & (strand != 0)
-    idx = torch.nonzero(sel)[:, 0]  # ascending positions
-    key, order = torch.sort(key[idx], stable=True)
-    idx = idx[order]
-    strand = strand[idx]
+    key, idx, strand = select_occurrences(codes, seq_id_of, k, w)
+    key, order = torch.sort(key, stable=True)
+    idx, strand = idx[order], strand[order]
     key, idx, strand = key.cpu().numpy(), idx.cpu().numpy(), strand.cpu().numpy()
     if want_gid:
         new = np.ones(len(key), bool)

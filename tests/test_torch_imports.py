@@ -31,10 +31,14 @@ def _forbidden(mod: str) -> bool:
 
 def test_port_sources_import_no_jax():
     files = sorted((ROOT / "npge_tpu_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
+    files += [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_mp_worker.py"]
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"npge_tpu_torch/meta.py", "npge_tpu_torch/cli.py",
-            "npge_tpu_torch/algo/is_pangenome.py"} <= names
+            "npge_tpu_torch/algo/is_pangenome.py",
+            "npge_tpu_torch/algo/genes.py", "npge_tpu_torch/ops/pack.py",
+            "npge_tpu_torch/parallel/distributed.py",
+            "npge_tpu_torch/parallel/mesh.py",
+            "npge_tpu_torch/parallel/sharded.py"} <= names
     bad = [
         f"{p.relative_to(ROOT)}: {m}"
         for p in files for m in _imported_modules(p) if _forbidden(m)
@@ -78,6 +82,9 @@ cfg = default_config().replace(
 bs, tm = build_pangenome(arena, cfg, "cpu")
 assert tm.counters["gapext_pairs"] > 0, tm.counters
 assert tm.counters.get("reseed.extend_cells", 0) > 0, tm.counters
+from npge_tpu_torch.parallel.mesh import DeviceMesh
+meshed, _ = build_pangenome(arena, cfg, "cpu", mesh=DeviceMesh(["cpu"] * 2))
+assert blockset_hash(meshed) == blockset_hash(bs)
 work = tempfile.mkdtemp()
 fasta = []
 for i, name in enumerate(arena.names):
