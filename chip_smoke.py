@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Smoke run of npge_tpu_torch on one NVIDIA GPU: the default builds, the
-mesh and two-process builds, the deep IsPangenome probe, every CLI verb and
-k = 32, end to end, through the hand-written CUDA kernel.
+"""Smoke run of npge_tpu_torch on one NVIDIA GPU: the default builds up to
+the 56 Mbp and 100 x 150 kb worlds, the mesh and two-process builds, the
+deep IsPangenome probe, every CLI verb and k = 32, end to end, through the
+hand-written CUDA kernel.
 
-    python3 chip_smoke.py [--ab-parent OLD/sw_xdrop.cu]
+    python3 chip_smoke.py [--ab-parent OLD/sw_xdrop.cu] [--trace]
 
 Phases (each prints its lines; any failure exits non-zero):
   1. environment: torch / CUDA / nvcc versions, the card's name and power
@@ -15,9 +16,10 @@ Phases (each prints its lines; any failure exits non-zero):
      cells these inputs need and the int32-operation bound on them;
   4. the 5 x 20 kb circular world with inversions: blockset hash, the
      IsPangenome check and kernel launches;
-  5. the 17 x 1 Mbp world with the default config: stage table, wall,
-     canonical blockset hash and the IsPangenome check; every call of the
-     SW entry point is recorded;
+  5. the 17 x 1 Mbp world with the default config: arena digest, stage
+     table, wall, SW pairs, launches and batch sizes, canonical blockset
+     hash, the IsPangenome check and the peak device memory; every call of
+     the SW entry point is recorded;
   6. the deep IsPangenome probe on that blockset, called directly (no
      build-time memo): its verdict against the reference's, its wall and
      its scan and extension seconds;
@@ -31,6 +33,8 @@ Phases (each prints its lines; any failure exits non-zero):
   6c. the deep probe on a 3 x 6 kb build without re-seeding, where it must
      find the reference's 80 hits;
   7. the 50 x 300 kb world with the default config, as phase 5;
+  7a. the 17 x 3.3 Mbp (56 Mbp) world, as phase 5;
+  7b. the 100 x 150 kb world, as phase 5;
   8. the CLI on the 5 x 20 kb world in a temporary work dir: make-pangenome,
      hash, make-pangenome --devices 2 (refused with fewer than two cards),
      run MakePangenome, check --deep (the probe; then the build-time
@@ -39,9 +43,12 @@ Phases (each prints its lines; any failure exits non-zero):
      and info;
   9. a k = 32 build of a small linear world against the reference's hash,
      and 2-bit packing of the 17 x 1 Mbp codes on the card;
- 10. every recorded SW batch of phases 5 and 7 replayed: the kernel against
-     its plain version exactly, the kernel's time by CUDA events, the cells
-     the batch needs and the bound on them.
+ 10. every recorded SW batch of phases 5, 7, 7a and 7b replayed: the
+     kernel against its plain version exactly, the kernel's time by CUDA
+     events, the cells the batch needs, the bound on them and its share;
+ 11. with ``--trace`` only, the 56 Mbp build once more under
+     torch.profiler: the device's busy time and idle share.
+Each phase prints its wall, and the script its total.
 With ``--ab-parent``, an earlier sw_xdrop.cu is built beside this one and
 timed in turns with it (parent, new, new, parent) in phases 3 and 10.
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
@@ -82,6 +89,18 @@ W50_WORLD = dict(n_genomes=50, length=300_000, seed=50, sub_rate=0.001,
                  indel_rate=0.00005, n_inversions=1)
 W50_CODES_SHA256 = "b31046dc4bc11270ea4195c3a638b4c5b0bc1ed148316ac444d779b0ec0fa3b2"
 W50_HASH = 0x171AB5F47B993F3E
+# 17 x 3.3 Mbp = 56 Mbp world (benchmarks/scale_17x3mb.py) and 100 x 150 kb
+# world (benchmarks/scale_100x150kb.py): arena digests from the JAX
+# package's synthetic_arena, and the reference's canonical blockset hashes
+# (benchmarks/README.md, equal on its TPU and CPU backends)
+W56_WORLD = dict(n_genomes=17, length=3_300_000, seed=42, sub_rate=0.002,
+                 indel_rate=0.0001, n_inversions=3)
+W56_CODES_SHA256 = "7bcd26c0742f889db04658b244187cbf30ea2ef7991b1e25c3cf2f1593339c2e"
+W56_HASH = 0x8D4F12B845EE29EB
+W100_WORLD = dict(n_genomes=100, length=150_000, seed=100, sub_rate=0.001,
+                  indel_rate=0.00005, n_inversions=1)
+W100_CODES_SHA256 = "75f33bf60da3a239509f700b2d1f3647339c908528f30bd4b4e9868901f54ec0"
+W100_HASH = 0x1D56883C2A62DCFC
 # the reference's deep IsPangenome report (ok, new_hits, messages) on the
 # canonical 17 x 1 Mbp blockset, from the JAX package on the CPU
 BIG_DEEP = (True, 0, [])
@@ -379,8 +398,8 @@ class BatchRecorder:
 def replay_batches(world: str, batches, parent=None) -> list:
     """Each recorded batch through the kernel and its plain version on the
     card, exactly equal; the kernel's time by CUDA events (and the parent
-    kernel's, in turns, when given), the cells the batch needs and the
-    bound on them."""
+    kernel's, in turns, when given), the plain version's time (one call),
+    the cells the batch needs, the bound on them and its share."""
     import torch
 
     from npge_tpu_torch.ops.sw import _sw_windows_cuda, sw_windows_plain
@@ -400,7 +419,11 @@ def replay_batches(world: str, batches, parent=None) -> list:
         )
         P = len(qb)
         got = _sw_windows_cuda(*args, 250, 251, 128, *sw)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
         want = sw_windows_plain(*args)
+        b.record()
+        b.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).any(dim=1).sum())
             fail(f"{world} batch {n} (P={P}, L={L}): {bad} pairs differ "
@@ -409,7 +432,7 @@ def replay_batches(world: str, batches, parent=None) -> list:
         need = needed_cells(args)
         row = {"world": world, "batch": n, "P": P, "L": L,
                "cells_nominal": P * 128 * (2 * L + 1), "needed_cells": need,
-               "bound_ms": sw_bound_ms(need)}
+               "bound_ms": sw_bound_ms(need), "plain_ms": a.elapsed_time(b)}
         if parent is not None:
             old = lambda: parent(*args)  # noqa: E731
             if not torch.equal(old(), want):
@@ -418,9 +441,11 @@ def replay_batches(world: str, batches, parent=None) -> list:
             row["ms"] = statistics.median(row["ab_turns_ms"][1:3])
         else:
             row["ms"] = graph_ms(new)
+        row["share"] = row["bound_ms"] / row["ms"]
         print(f"[replay] {world} batch {n}: P={P} L={L} exact; "
-              f"{row['ms']:.4f} ms, needed cells {need} of "
-              f"{row['cells_nominal']}, bound {row['bound_ms']:.4f} ms"
+              f"{row['ms']:.4f} ms (plain {row['plain_ms']:.3f} ms), needed "
+              f"cells {need} of {row['cells_nominal']}, bound "
+              f"{row['bound_ms']:.4f} ms, share {row['share']:.3f}"
               + (f", turns parent/new/new/parent {row['ab_turns_ms']}"
                  if parent is not None else ""), flush=True)
         rows.append(row)
@@ -483,12 +508,19 @@ def phase_world(tag: str, world: dict, codes_sha256: str, pinned: int):
     with BatchRecorder() as rec:
         sw.SW_LAUNCHES = 0  # count the main path's launches only
         torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         bs, tm = build_pangenome(arena, cfg, "cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = sw.SW_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
     print(tm.report(), flush=True)
+    print(f"[{tag}] peak device memory {peak / 2**30:.3f} GiB "
+          f"({held / 2**30:.3f} GiB held before the build) of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} "
+          f"GiB", flush=True)
     tm.add("wall", wall)
     print(f"[{tag}] wall {wall:.2f} s; sw pairs "
           f"{tm.counters.get('gapext_pairs', 0)}, sw launches {launches}, "
@@ -895,47 +927,120 @@ def phase_pack() -> None:
         fail("pack2 / unpack2 on the card disagree with the CPU")
 
 
+def phase_trace() -> None:
+    """The 56 Mbp build once more under torch.profiler: the device's busy
+    time (the union of the device events' spans: kernels, copies, sets)
+    and its idle share of the build's wall, and the device entries that
+    take the most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from npge_tpu_torch import build_pangenome, default_config, synthetic_arena
+
+    arena = synthetic_arena(**W56_WORLD)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build_pangenome(arena, default_config(), "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # CPU ops carry their kernels' device time too: count device events only
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    )
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy = busy_us / 1e6
+    print(f"[trace] 56Mbp build under the profiler: wall {wall:.3f} s, "
+          f"{len(spans)} device events, device busy {busy:.3f} s, idle "
+          f"share {1 - busy / wall:.4f}", flush=True)
+    if busy <= 0:
+        fail("the profiler recorded no device time")
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[trace] {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{e.count:7d} x {e.key[:90]}", flush=True)
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``, printing its wall as one phase's."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s", flush=True)
+    return out
+
+
 def main() -> None:
     import argparse
 
     import torch
 
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--ab-parent", metavar="SW_XDROP_CU",
         help="an earlier sw_xdrop.cu (without the last-diagonal output) to "
              "build and time in turns with this one on every shape and batch",
     )
+    ap.add_argument(
+        "--trace", action="store_true",
+        help="end with phase 11: the 56 Mbp build again under torch.profiler",
+    )
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    phase_env()
-    phase_build()
+    timed("1 env", phase_env)
+    timed("2 build", phase_build)
     parent = build_parent_kernel(opts.ab_parent) if opts.ab_parent else None
-    kern = phase_kernel(parent)
-    phase_small_world()
-    launches, batches, bs, cfg, tm_single = phase_world(
-        "17x1Mbp", BIG_WORLD, BIG_CODES_SHA256, BIG_HASH
+    kern = timed("3 kernel", phase_kernel, parent)
+    timed("4 5x20kb", phase_small_world)
+    launches, batches, bs, cfg, tm_single = timed(
+        "5 17x1Mbp", phase_world, "17x1Mbp", BIG_WORLD, BIG_CODES_SHA256,
+        BIG_HASH,
     )
-    phase_deep(bs, cfg)
+    timed("6 deep", phase_deep, bs, cfg)
     del bs
-    meshes = phase_mesh()
+    meshes = timed("6a mesh", phase_mesh)
     launches_mesh = meshes[0][1]
-    ranks = phase_mp()
+    ranks = timed("6b two ranks", phase_mp)
     print_stage_table({
         "17x1Mbp single device": tm_single.seconds,
         **{f"mesh {m}": tm.seconds for m, _, tm in meshes},
         **{f"rank {r['rank']} of 2": r["seconds"] for r in ranks},
     })
-    phase_deep_hits()
-    launches_50, batches_50, _, _, _ = phase_world(
-        "50x300kb", W50_WORLD, W50_CODES_SHA256, W50_HASH
+    timed("6c deep hits", phase_deep_hits)
+    launches_50, batches_50, _, _, _ = timed(
+        "7 50x300kb", phase_world, "50x300kb", W50_WORLD, W50_CODES_SHA256,
+        W50_HASH,
     )
-    launches_cli = phase_cli()
-    launches_k32 = phase_k32()
-    phase_pack()
+    launches_56, batches_56, _, _, tm_56 = timed(
+        "7a 56Mbp", phase_world, "56Mbp", W56_WORLD, W56_CODES_SHA256,
+        W56_HASH,
+    )
+    launches_100, batches_100, _, _, tm_100 = timed(
+        "7b 100x150kb", phase_world, "100x150kb", W100_WORLD,
+        W100_CODES_SHA256, W100_HASH,
+    )
+    print_stage_table({
+        "17x1Mbp": tm_single.seconds, "56Mbp": tm_56.seconds,
+        "100x150kb": tm_100.seconds,
+    })
+    launches_cli = timed("8 cli", phase_cli)
+    launches_k32 = timed("9 k32", phase_k32)
+    timed("9 pack", phase_pack)
+    t0 = time.perf_counter()
     rows = replay_batches("17x1Mbp", batches, parent)
     rows += replay_batches("50x300kb", batches_50, parent)
+    rows += replay_batches("56Mbp", batches_56, parent)
+    rows += replay_batches("100x150kb", batches_100, parent)
+    print(f"[phase] 10 replay: {time.perf_counter() - t0:.2f} s", flush=True)
+    if opts.trace:
+        timed("11 trace", phase_trace)
     for mod in ("jax", "npge_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -947,6 +1052,8 @@ def main() -> None:
         "replaces": "npge_tpu/ops/sw.py:74",
         "launches": launches,
         "launches_50x300kb": launches_50,
+        "launches_56Mbp": launches_56,
+        "launches_100x150kb": launches_100,
         "launches_cli": launches_cli,
         "launches_k32": launches_k32,
         "launches_mesh": launches_mesh,
@@ -963,6 +1070,7 @@ def main() -> None:
         "shapes": kern,
         "batches": rows,
     }]
+    print(f"[phase] total: {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

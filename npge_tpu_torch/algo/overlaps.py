@@ -26,6 +26,7 @@ from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.model.blocks import Block, normalize_wrap_starts
 from npge_tpu_torch.model.fragments import FragmentTable, frag_spans
 from npge_tpu_torch.model.stats import column_classes, is_good_block
+from npge_tpu_torch.util import codes as C
 from npge_tpu_torch.algo.filter import best_good_slice
 
 
@@ -158,8 +159,6 @@ def _col_positions(frag_row, n_cols: int, aln_row=None) -> np.ndarray:
         if o == 1:
             return np.arange(st, st + n_cols)
         return np.arange(st + ln - 1, st + ln - 1 - n_cols, -1)
-    from npge_tpu_torch.util import codes as C
-
     nongap = aln_row != C.GAP
     k = np.cumsum(nongap) - 1  # non-gap ordinal per column
     pos = np.where(o == 1, st + k, st + ln - 1 - k)
@@ -181,11 +180,15 @@ def _runs(mask: np.ndarray):
 
 
 def _admit_python(
-    b: Block, arena, cfg: Config, occ: list[np.ndarray], accepted: list[Block]
+    b: Block, arena, cfg: Config, occ: list[np.ndarray], accepted: list[Block],
+    buf: np.ndarray | None = None,
 ) -> None:
     """Admit one candidate against per-sequence occupancy (uint8 views).
     Wrap-fragment aware: positions index occupancy modulo the sequence
-    length (model/fragments.frag_spans convention)."""
+    length (model/fragments.frag_spans convention). A caller that made
+    ``occ`` as the views ``buf[offsets[s]:offsets[s+1]]`` of one arena
+    buffer passes ``buf`` for one global gather; else each sequence's
+    array is read on its own."""
     # reject candidates whose own fragments overlap each other (can arise
     # from consensus re-seed mapping): they could never satisfy the
     # partition invariant. Wrap fragments contribute both spans.
@@ -212,18 +215,17 @@ def _admit_python(
         kk = np.broadcast_to(np.arange(n), (b.n_frags, n))
         has = np.ones((b.n_frags, n), dtype=bool)
     else:
-        has = b.alignment != 5  # C.GAP
+        has = b.alignment != C.GAP
         kk = np.cumsum(has, axis=1) - 1
     pos = np.where(ori == 1, st + kk, st + ln - 1 - kk)
-    gpos = arena.offsets[seqs][:, None] + np.where(has, pos % Ls, 0)
-    buf = occ[0].base if occ and occ[0].base is not None else None
-    if buf is None:  # occ views not backed by one buffer: per-seq gather
+    if buf is None:  # no arena buffer vouched for: per-sequence gather
         occupied = np.zeros((b.n_frags, n), dtype=bool)
         for fi in range(b.n_frags):
             occupied[fi, has[fi]] = (
                 occ[int(seqs[fi])][pos[fi, has[fi]] % int(Ls[fi, 0])] != 0
             )
     else:
+        gpos = arena.offsets[seqs][:, None] + np.where(has, pos % Ls, 0)
         occupied = (buf[gpos] != 0) & has
     free = ~occupied.any(axis=0)
     for c0, c1 in _runs(free):
@@ -284,7 +286,7 @@ def resolve_overlaps(
             i += 1
             continue
         if not nat[ci]:
-            _admit_python(fc.block(ci), arena, cfg, occ, accepted)
+            _admit_python(fc.block(ci), arena, cfg, occ, accepted, occ_concat)
             i += 1
             continue
         # maximal run of consecutive gapless non-wrap candidates -> one

@@ -1,5 +1,5 @@
 """npge_tpu_torch build_pangenome (device="cpu") vs the JAX reference on
-three worlds with the default gapped extension: equal canonical blockset
+four worlds with the default gapped extension: equal canonical blockset
 hashes, and a valid pangenome."""
 
 import numpy as np
@@ -10,6 +10,8 @@ from npge_tpu.config import default_config
 from npge_tpu.model.arena import GenomeArena
 from npge_tpu.model.hashing import blockset_hash
 from npge_tpu.util.synthetic import synthetic_arena
+from npge_tpu_torch.algo.anchors import find_anchors
+from npge_tpu_torch.algo.extender import _bucket_f
 from npge_tpu_torch.algo.is_pangenome import check_is_pangenome
 from npge_tpu_torch.algo.pangenome import build_pangenome
 from npge_tpu_torch.model.hashing import blockset_hash as port_hash
@@ -61,6 +63,16 @@ WORLDS = {
         small_cfg(MAX_LOOPS=2, GAPPED_FLANK=64),
     ),
     "n_runs": lambda: (_n_run_world(), small_cfg(GAPPED_FLANK=128)),
+    # 40 genomes of 2.5 kb at low divergence (100 kb): anchor groups of 40
+    # occurrences take the F = 64 extension bucket and blocks hold tens of
+    # fragments, the shape of the 100 x 150 kb world at a CPU size
+    "many_genomes": lambda: (
+        synthetic_arena(
+            n_genomes=40, length=2500, seed=40, sub_rate=0.003,
+            indel_rate=0.0003, n_inversions=1,
+        ),
+        small_cfg(),
+    ),
 }
 
 
@@ -70,6 +82,10 @@ def test_build_matches_reference(world):
     assert cfg.GAPPED_EXTEND
     ref, _ = ref_build(arena, cfg)
     got, tm = build_pangenome(port_arena(arena), port_config(cfg), "cpu")
+    if world == "many_genomes":
+        groups = find_anchors(port_arena(arena), port_config(cfg), "cpu")
+        assert _bucket_f(int(groups.sizes().max())) == 64
+        assert max(b.n_frags for b in got.blocks) > 32
     assert tm.counters["gapext_pairs"] > 0  # the SW pass ran
     assert tm.counters["gapext.sw_launches"] == 0  # plain version on CPU
     rep = check_is_pangenome(got, port_config(cfg))
