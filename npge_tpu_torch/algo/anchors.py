@@ -151,7 +151,7 @@ def dedupe_parallel_groups(
 
 
 # mirrors npge_tpu/algo/anchors.py:_cyclic_scan
-def _cyclic_scan(arena: GenomeArena, k: int, w: int, device):
+def _cyclic_scan(arena: GenomeArena, k: int, w: int, device, timings=None):
     """Anchor occurrences with a cyclic halo on circular sequences: each
     circular sequence of length >= k gets its first k+w-2 bases appended,
     occurrences map back to original coordinates, halo duplicates are
@@ -175,7 +175,7 @@ def _cyclic_scan(arena: GenomeArena, k: int, w: int, device):
         eoff[i + 1] = eoff[i] + len(seg)
     codes_ext = np.concatenate(parts)
     key, pos, strand = find_anchor_occurrences(
-        codes_ext, None, k, w, device, offsets=eoff
+        codes_ext, None, k, w, device, offsets=eoff, timings=timings
     )
     seq = np.searchsorted(eoff, pos, side="right") - 1
     lens = (arena.offsets[seq + 1] - arena.offsets[seq]).astype(np.int64)
@@ -200,21 +200,23 @@ def find_anchors(
     cfg: Config,
     device,
     k: int | None = None,
+    timings=None,
 ) -> AnchorGroups:
     """Find anchor groups over the whole arena on ``device`` (scanning the
     arena's cached device copy, see ``device.upload_arena``). Arenas with
-    circular sequences take the cyclic-halo scan."""
+    circular sequences take the cyclic-halo scan. ``timings`` receives the
+    scan's transfers."""
     k = k or cfg.ANCHOR_SIZE
     w = cfg.MINIMIZER_WINDOW
     if any(
         arena.circular(i) and arena.seq_len(i) >= k
         for i in range(arena.n_seqs)
     ):
-        key, pos, strand = _cyclic_scan(arena, k, w, device)
+        key, pos, strand = _cyclic_scan(arena, k, w, device, timings)
         return form_groups(key, pos, strand, arena, cfg, k)
     gid, pos, strand = find_anchor_occurrences(
-        upload_arena(arena, device)[0], None, k, w, device,
-        offsets=arena.offsets, want_gid=True,
+        upload_arena(arena, device, timings)[0], None, k, w, device,
+        offsets=arena.offsets, want_gid=True, timings=timings,
     )
     return form_groups_gid(gid, pos, strand, arena, cfg, k)
 

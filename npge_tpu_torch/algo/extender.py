@@ -16,7 +16,7 @@ import torch
 
 from npge_tpu_torch.algo.anchors import AnchorGroups
 from npge_tpu_torch.config import Config
-from npge_tpu_torch.device import resolve_device, upload_arena
+from npge_tpu_torch.device import resolve_device, to_device, to_host, upload_arena
 from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.model.blocks import Block
 from npge_tpu_torch.model.fragments import FragmentTable
@@ -133,6 +133,16 @@ def _bucket_f(f: int) -> int:
     return b
 
 
+def live_slot_rounds(total: np.ndarray, nvalid: np.ndarray, chunk: int, rounds: int) -> int:
+    """Valid fragment slots of the rows still extending as each of
+    ``rounds`` rounds starts, from each row's total extension: a row that
+    consumed a full chunk in every round so far is live, and one that
+    stops short freezes, so a row is live in min(total // chunk + 1,
+    rounds) rounds."""
+    live = np.minimum(total.astype(np.int64) // chunk + 1, rounds)
+    return int((nvalid.astype(np.int64) * live).sum())
+
+
 # mirrors npge_tpu/algo/extender.py:extend_anchor_groups
 def extend_anchor_groups(
     arena: GenomeArena,
@@ -146,7 +156,12 @@ def extend_anchor_groups(
     """Extend all groups on ``device`` (over the arena's cached doubled
     codes, see ``device.upload_arena``); return the columnar CandidateBatch
     of gapless candidates (one per group) in group order. ``timings``
-    (StageTimings) receives the ``<counter_prefix>_cells`` counter.
+    (StageTimings) receives the transfers and the counters
+    ``<counter_prefix>_cells``, ``.batches``, ``.rounds`` (summed over
+    the slices of a batch), ``.slot_rounds`` (padded fragment slots
+    computed: rows x F-bucket x rounds of each slice) and
+    ``.useful_slot_rounds`` (valid fragments of the rows still extending
+    as each round starts, :func:`live_slot_rounds`).
 
     With ``mesh`` (a ``parallel.mesh.DeviceMesh``) every stacked batch is
     split into contiguous row slices, one per mesh device, each extended
@@ -209,21 +224,30 @@ def extend_anchor_groups(
             base2 = torch.from_numpy(np.concatenate([base_l, base_r]))
             cap2 = torch.from_numpy(np.concatenate([cl, cr]).astype(np.int32))
             fm2 = torch.from_numpy(np.concatenate([valid, valid]))
+            nvalid = np.concatenate([nocc, nocc])
             total = np.zeros(2 * B, np.int32)
             rounds = 0
             for dev, r0, r1 in shards(2 * B):
                 if r0 == r1:
                     continue
                 tot, r = extend_rounds(
-                    upload_arena(arena, dev)[1], base2[r0:r1].to(dev),
-                    fm2[r0:r1].to(dev), cap2[r0:r1].to(dev),
-                    num, den, chunk, max_rounds,
+                    upload_arena(arena, dev, timings)[1],
+                    *(to_device(x[r0:r1], dev, timings) for x in (base2, fm2, cap2)),
+                    num, den, chunk, max_rounds, timings,
                 )
-                total[r0:r1] = tot.cpu().numpy()
+                total[r0:r1] = to_host(tot, timings).numpy()
                 rounds = max(rounds, r)
+                if timings is not None:
+                    timings.count(f"{counter_prefix}.rounds", r)
+                    timings.count(f"{counter_prefix}.slot_rounds", (r1 - r0) * fb * r)
+                    timings.count(
+                        f"{counter_prefix}.useful_slot_rounds",
+                        live_slot_rounds(total[r0:r1], nvalid[r0:r1], chunk, r),
+                    )
             results_l[batch] = total[:B]
             results_r[batch] = total[B:]
             if timings is not None:
+                timings.count(f"{counter_prefix}.batches", 1)
                 # both sides scan up to rounds*chunk columns per fragment
                 timings.count(
                     f"{counter_prefix}_cells",

@@ -14,7 +14,6 @@ the port's scan, extension, deconseq and resolve on the named device.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 
 from npge_tpu_torch.algo.anchors import find_anchors
@@ -28,6 +27,7 @@ from npge_tpu_torch.config import Config
 from npge_tpu_torch.device import resolve_device, upload_arena
 from npge_tpu_torch.model.blocks import BlockSet
 from npge_tpu_torch.model.stats import is_good_block
+from npge_tpu_torch.trace import span
 
 
 # mirrors npge_tpu/algo/is_pangenome.py:PangenomeReport
@@ -91,9 +91,10 @@ def check_is_pangenome(
 ) -> PangenomeReport:
     """Checks 1-3b, then with ``deep`` the re-seed probe on
     ``device`` ("cuda" or "cpu"; required with ``deep``, never guessed).
-    ``timings`` (StageTimings) receives the probe's stage seconds under
+    ``timings`` (StageTimings) receives the probe's stages as spans
     ``deep.cons``, ``deep.scan``, ``deep.extend``, ``deep.deconseq`` and
-    ``deep.resolve``, and the ``deep.extend_cells`` counter."""
+    ``deep.resolve`` (each with the spans of its own steps inside), the
+    transfers, and the ``deep.extend`` counters."""
     if deep and device is None:
         raise ValueError("the deep probe needs an explicit device")
     rep = _host_checks(bs, cfg)
@@ -101,39 +102,32 @@ def check_is_pangenome(
         return rep
     dev = resolve_device(device)
 
-    def book(stage: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        if timings is not None:
-            timings.add(stage, t1 - t0)
-        return t1
-
     # re-seeding on block consensuses yields no admissible good hit: a
     # "new hit" is a mapped candidate that would be admitted against the
     # current partition and raise the quality metric
-    t0 = time.perf_counter()
-    full = BlockSet(bs.arena, list(bs.blocks))
-    full.canonicalize()
-    cons, src = consensus_arena(full)
-    upload_arena(cons, dev)
-    t0 = book("deep.cons", t0)
-    # probe at the finest seed size the construction loop ever uses
-    groups = find_anchors(cons, cfg, dev, k=cfg.MIN_ANCHOR_SIZE)
-    t0 = book("deep.scan", t0)
-    cand = extend_anchor_groups(
-        cons, groups, cfg, dev, timings=timings, counter_prefix="deep.extend"
-    )
-    t0 = book("deep.extend", t0)
-    mapped = deconseq(cand, src, full)
-    t0 = book("deep.deconseq", t0)
-    if mapped:
-        multi = [b for b in full.blocks if b.n_frags >= 2]
-        base = quality_metric(BlockSet(bs.arena, multi))
-        trial = resolve_overlaps(multi + mapped, bs.arena, cfg)
-        if quality_metric(BlockSet(bs.arena, trial)) > base:
-            rep.new_hits = len(mapped)
-            rep.ok = False
-            rep.messages.append(
-                f"re-seeding finds improving hits ({len(mapped)} candidates)"
-            )
-    book("deep.resolve", t0)
+    with span(timings, "deep.cons"):
+        full = BlockSet(bs.arena, list(bs.blocks))
+        full.canonicalize()
+        cons, src = consensus_arena(full)
+        upload_arena(cons, dev, timings)
+    with span(timings, "deep.scan"):
+        # probe at the finest seed size the construction loop ever uses
+        groups = find_anchors(cons, cfg, dev, k=cfg.MIN_ANCHOR_SIZE, timings=timings)
+    with span(timings, "deep.extend"):
+        cand = extend_anchor_groups(
+            cons, groups, cfg, dev, timings=timings, counter_prefix="deep.extend"
+        )
+    with span(timings, "deep.deconseq"):
+        mapped = deconseq(cand, src, full, timings=timings)
+    with span(timings, "deep.resolve"):
+        if mapped:
+            multi = [b for b in full.blocks if b.n_frags >= 2]
+            base = quality_metric(BlockSet(bs.arena, multi))
+            trial = resolve_overlaps(multi + mapped, bs.arena, cfg, timings=timings)
+            if quality_metric(BlockSet(bs.arena, trial)) > base:
+                rep.new_hits = len(mapped)
+                rep.ok = False
+                rep.messages.append(
+                    f"re-seeding finds improving hits ({len(mapped)} candidates)"
+                )
     return rep

@@ -26,6 +26,7 @@ from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.model.blocks import Block, normalize_wrap_starts
 from npge_tpu_torch.model.fragments import FragmentTable, frag_spans
 from npge_tpu_torch.model.stats import column_classes, is_good_block
+from npge_tpu_torch.trace import span
 from npge_tpu_torch.util import codes as C
 from npge_tpu_torch.algo.filter import best_good_slice
 
@@ -251,7 +252,8 @@ def _admit_python(
 
 
 def resolve_overlaps(
-    cand, arena: GenomeArena, cfg: Config, use_native: bool = True
+    cand, arena: GenomeArena, cfg: Config, use_native: bool = True,
+    timings=None,
 ) -> list[Block]:
     """Greedy admission of candidate blocks into an overlap-free, all-good
     set. Returns the admitted blocks; unclaimed positions are left for Rest.
@@ -264,7 +266,11 @@ def resolve_overlaps(
     (native.resolve_gapless, exact same semantics); gapped candidates (and
     everything, when the native library is absent) run the Python path.
     Both share one occupancy bitmap, processed in one global greedy order,
-    so results are identical either way (parity-tested)."""
+    so results are identical either way (parity-tested). ``timings``
+    receives spans ``resolve.native``, ``resolve.python`` (each a run of
+    consecutive candidates of one path) and ``resolve.blocks`` (the admitted
+    native rows made into Blocks), and the eligible candidates by path,
+    ``resolve.native_cands`` and ``resolve.python_cands``."""
     from npge_tpu_torch import native
 
     occ_concat = np.zeros(arena.total_length, np.uint8)
@@ -279,60 +285,68 @@ def resolve_overlaps(
     accepted: list[Block] = []
     native_ok = use_native and native.have_native()
     nat = native_ok & fc.gapless & ~wraps
+    if timings is not None:
+        timings.count("resolve.native_cands", int((eligible & nat).sum()))
+        timings.count("resolve.python_cands", int((eligible & ~nat).sum()))
     i = 0
     while i < len(order):
-        ci = int(order[i])
-        if not eligible[ci]:
-            i += 1
-            continue
-        if not nat[ci]:
-            _admit_python(fc.block(ci), arena, cfg, occ, accepted, occ_concat)
-            i += 1
-            continue
-        # maximal run of consecutive gapless non-wrap candidates -> one
-        # C++ call (the native path assumes start+length <= seq_len)
+        # maximal run of consecutive candidates of one path: gapless
+        # non-wrap ones in one C++ call (the native path assumes
+        # start+length <= seq_len), the others one at a time
         j = i
-        while j < len(order) and nat[order[j]]:
+        while j < len(order) and nat[order[j]] == nat[order[i]]:
             j += 1
         seg_ids = order[i:j]
         seg_ids = seg_ids[eligible[seg_ids]]
+        python_path = not nat[order[i]]
+        i = j
+        if not len(seg_ids):
+            continue
+        if python_path:
+            with span(timings, "resolve.python"):
+                for ci in seg_ids:
+                    _admit_python(
+                        fc.block(int(ci)), arena, cfg, occ, accepted, occ_concat
+                    )
+            continue
         offs, f_seq, f_start, f_len, f_ori = fc.frag_rows(seg_ids)
-        res = native.resolve_gapless(
-            arena.codes, arena.offsets, occ_concat,
-            offs, f_seq.astype(np.int32), f_start.astype(np.int32),
-            f_len.astype(np.int32), f_ori.astype(np.int32),
-            np.arange(len(seg_ids), dtype=np.int64),
-            cfg.MIN_LENGTH, cfg.MIN_END,
-            cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den,
-        )
+        with span(timings, "resolve.native"):
+            res = native.resolve_gapless(
+                arena.codes, arena.offsets, occ_concat,
+                offs, f_seq.astype(np.int32), f_start.astype(np.int32),
+                f_len.astype(np.int32), f_ori.astype(np.int32),
+                np.arange(len(seg_ids), dtype=np.int64),
+                cfg.MIN_LENGTH, cfg.MIN_END,
+                cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den,
+            )
         out_off, o_seq, o_start, o_len, o_ori, o_src = res
-        for k in range(len(out_off) - 1):
-            a, e = int(out_off[k]), int(out_off[k + 1])
-            src_ci = int(seg_ids[int(o_src[k])])
-            sa, se = int(fc.offs[src_ci]), int(fc.offs[src_ci + 1])
-            # candidate admitted whole -> for list candidates reuse the
-            # input Block OBJECT: downstream caches (join stats, rejected
-            # probes, consensus) key by object identity across reseed
-            # rounds. Batch candidates are freshly created, so a fresh
-            # materialization is equivalent.
-            if (
-                not fc.is_batch
-                and e - a == se - sa
-                and int(o_len[a]) == int(fc.ncols[src_ci])
-                and np.array_equal(
-                    o_start[a:e].astype(np.int64), fc.start[sa:se]
-                )
-            ):
-                accepted.append(fc.block(src_ci))
-                continue
-            accepted.append(
-                Block(
-                    FragmentTable(
-                        o_seq[a:e], o_start[a:e], o_len[a:e], o_ori[a:e]
+        with span(timings, "resolve.blocks"):
+            for k in range(len(out_off) - 1):
+                a, e = int(out_off[k]), int(out_off[k + 1])
+                src_ci = int(seg_ids[int(o_src[k])])
+                sa, se = int(fc.offs[src_ci]), int(fc.offs[src_ci + 1])
+                # candidate admitted whole -> for list candidates reuse the
+                # input Block OBJECT: downstream caches (join stats, rejected
+                # probes, consensus) key by object identity across reseed
+                # rounds. Batch candidates are freshly created, so a fresh
+                # materialization is equivalent.
+                if (
+                    not fc.is_batch
+                    and e - a == se - sa
+                    and int(o_len[a]) == int(fc.ncols[src_ci])
+                    and np.array_equal(
+                        o_start[a:e].astype(np.int64), fc.start[sa:se]
+                    )
+                ):
+                    accepted.append(fc.block(src_ci))
+                    continue
+                accepted.append(
+                    Block(
+                        FragmentTable(
+                            o_seq[a:e], o_start[a:e], o_len[a:e], o_ori[a:e]
+                        )
                     )
                 )
-            )
-        i = j
     return accepted
 
 

@@ -8,12 +8,13 @@ the device), then the consensus re-seed fixed-point loop, Rest and names.
 Same stage books, k schedule, revert rule, cache sweep and
 ``deep.proven_at_kmin`` exits as the reference, so the blockset hash is
 the reference's.
+
+Every step of a build runs inside a span of its :class:`StageTimings`
+(``npge_tpu_torch.trace``), all under one ``build`` span: the stages,
+their sub-steps and, inside them, each blocking host-device transfer.
 """
 
 from __future__ import annotations
-
-import time
-from dataclasses import dataclass, field
 
 from npge_tpu_torch.algo.anchors import AnchorGroups, find_anchors
 from npge_tpu_torch.algo.conseq import consensus_arena, deconseq
@@ -34,33 +35,7 @@ from npge_tpu_torch.parallel.distributed import (
 )
 from npge_tpu_torch.parallel.mesh import DeviceMesh
 from npge_tpu_torch.parallel.sharded import sharded_find_anchors
-
-
-# mirrors npge_tpu/algo/pangenome.py:StageTimings
-@dataclass
-class StageTimings:
-    seconds: dict[str, float] = field(default_factory=dict)
-    counters: dict[str, int] = field(default_factory=dict)
-
-    def add(self, stage: str, dt: float) -> None:
-        self.seconds[stage] = self.seconds.get(stage, 0.0) + dt
-
-    def count(self, name: str, n: int) -> None:
-        self.counters[name] = self.counters.get(name, 0) + int(n)
-
-    def report(self) -> str:
-        total = sum(self.seconds.values())
-        lines = [f"{'stage':<18}{'seconds':>10}"]
-        for k, v in self.seconds.items():
-            lines.append(f"{k:<18}{v:>10.3f}")
-        lines.append(f"{'TOTAL':<18}{total:>10.3f}")
-        for k, v in self.counters.items():
-            rate = ""
-            base = k.split("_cells")[0]
-            if k.endswith("_cells") and self.seconds.get(base):
-                rate = f"  ({v / self.seconds[base] / 1e6:.1f} Mcells/s)"
-            lines.append(f"{k:<18}{v:>12}{rate}")
-        return "\n".join(lines)
+from npge_tpu_torch.trace import StageTimings
 
 
 # mirrors npge_tpu/algo/pangenome.py:build_pangenome
@@ -85,6 +60,13 @@ def build_pangenome(
     multiproc = mesh is None and multiprocess()
     devices = list(dict.fromkeys(mesh.devices)) if mesh is not None else [dev]
     t = StageTimings()
+    with t.span("build"):
+        bs = _build(arena, cfg, dev, devices, mesh, multiproc, t, verbose)
+    return bs, t
+
+
+def _build(arena, cfg, dev, devices, mesh, multiproc, t, verbose) -> BlockSet:
+    """The steps of :func:`build_pangenome`, each in a span of ``t``."""
 
     def log(msg: str) -> None:
         if verbose:
@@ -93,56 +75,56 @@ def build_pangenome(
     def scan(a: GenomeArena, k: int) -> AnchorGroups:
         if multiproc:
             return multihost_find_anchors(a, cfg, dev, k=k, timings=t)
+        # called with (arena, cfg, device, k) alone: portbench records every
+        # scan through a wrapper of this module's find_anchors that takes
+        # no more, so the single-device scan's transfers are not booked
         return find_anchors(a, cfg, dev, k=k)
 
-    t0 = time.perf_counter()
-    for d in devices:  # cached on the arena for the stages below
-        upload_arena(arena, d)
-    t.add("upload", time.perf_counter() - t0)
+    with t.span("upload"):
+        for d in devices:  # cached on the arena for the stages below
+            upload_arena(arena, d, timings=t)
 
-    t0 = time.perf_counter()
-    if mesh is not None:
-        groups = sharded_find_anchors(arena, cfg, mesh)
-    else:
-        groups = scan(arena, cfg.ANCHOR_SIZE)
-    t.add("anchors", time.perf_counter() - t0)
+    with t.span("anchors"):
+        if mesh is not None:
+            groups = sharded_find_anchors(arena, cfg, mesh)
+        else:
+            groups = scan(arena, cfg.ANCHOR_SIZE)
     log(f"anchors: {groups.n_groups} groups, {len(groups.pos)} occurrences")
 
-    t0 = time.perf_counter()
-    cand = extend_anchor_groups(arena, groups, cfg, dev, timings=t, mesh=mesh)
-    t.add("extend", time.perf_counter() - t0)
+    with t.span("extend"):
+        cand = extend_anchor_groups(arena, groups, cfg, dev, timings=t, mesh=mesh)
     log(f"extend: {len(cand)} candidate blocks")
 
-    t0 = time.perf_counter()
-    accepted = resolve_overlaps(cand, arena, cfg)
-    t.add("resolve", time.perf_counter() - t0)
+    with t.span("resolve"):
+        accepted = resolve_overlaps(cand, arena, cfg, timings=t)
     log(f"resolve: {len(accepted)} admitted blocks")
 
-    t0 = time.perf_counter()
-    bs = BlockSet(arena, accepted)
-    # join probe caches persist across the whole build (resolve keeps Block
-    # object identity for unchanged blocks)
-    join_cache = _StatCache(bs, cfg.MIN_END, stats=t.counters)
-    join_rejected: set = set()
-    gapext_cache: dict = {}  # no-ext probe memo, see gapped_extend_blocks
-    n_joins = join_blocks(bs, cfg, join_cache, join_rejected)
-    t.add("join", time.perf_counter() - t0)
+    with t.span("join"):
+        with t.span("blockset"):
+            bs = BlockSet(arena, accepted)
+        # join probe caches persist across the whole build (resolve keeps
+        # Block object identity for unchanged blocks)
+        join_cache = _StatCache(bs, cfg.MIN_END, stats=t.counters)
+        join_rejected: set = set()
+        gapext_cache: dict = {}  # no-ext probe memo, see gapped_extend_blocks
+        n_joins = join_blocks(bs, cfg, join_cache, join_rejected)
     log(f"join: {n_joins} merges -> {len(bs.blocks)} blocks")
 
     if cfg.GAPPED_EXTEND:
-        t0 = time.perf_counter()
-        n_ext = gapped_extend_blocks(
-            bs, cfg, dev, timings=t, probe_cache=gapext_cache
-        )
-        if n_ext:
-            join_blocks(bs, cfg, join_cache, join_rejected)
-        t.add("gapext", time.perf_counter() - t0)
+        with t.span("gapext"):
+            n_ext = gapped_extend_blocks(
+                bs, cfg, dev, timings=t, probe_cache=gapext_cache
+            )
+            if n_ext:
+                with t.span("rejoin"):
+                    join_blocks(bs, cfg, join_cache, join_rejected)
         log(f"gapext: {n_ext} side-extensions -> {len(bs.blocks)} blocks")
 
     # ---- consensus re-seed fixed-point loop ----
     k = cfg.ANCHOR_SIZE
     prev_hash = None
-    best_metric = quality_metric(bs)
+    with t.span("quality"):
+        best_metric = quality_metric(bs)
     snapshot = list(bs.blocks)
     cons_cache: dict = {}  # id -> (block, cons, cmap), see consensus_arena
     rest_cache: dict = {}  # (seq, start, len) -> Block, see rest_blocks
@@ -177,47 +159,50 @@ def build_pangenome(
             del gapext_cache[key]
 
     for round_no in range(cfg.MAX_LOOPS):
-        sweep_caches()
+        with t.span("reseed.sweep", round=round_no):
+            sweep_caches()
         # seed phase books: occ = rest fill + canonical hash, cons =
         # consensus arena build + upload, scan = anchor scan, extend =
         # extension + deconseq mapping
-        t0 = time.perf_counter()
-        occ = occupancy(arena, bs.blocks)
-        full = BlockSet(
-            arena,
-            list(bs.blocks) + rest_blocks(
-                arena, occ, rest_cache, stats=t.counters
-            ),
-        )
-        full.canonicalize(canon_memo, stats=t.counters)
-        h = blockset_hash(full, hash_memo)
-        if h == prev_hash and k <= cfg.MIN_ANCHOR_SIZE:
-            # unchanged blockset and no finer seed size left: the deep
-            # IsPangenome probe at k=MIN is proven non-improving
-            t.count("deep.proven_at_kmin", 1)
-            t.add("reseed.occ", time.perf_counter() - t0)
-            break
-        prev_hash = h
-        k = max(cfg.MIN_ANCHOR_SIZE, k - (cfg.RESEED_SHRINK if round_no else 0))
-        t.add("reseed.occ", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        cons, src = consensus_arena(full, cons_cache, stats=t.counters)
-        for d in devices:
-            upload_arena(cons, d)
-        t.add("reseed.cons", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        groups = scan(cons, k)
-        t.add("reseed.scan", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        cand_cons = extend_anchor_groups(
-            cons, groups, cfg, dev, timings=t,
-            counter_prefix="reseed.extend", mesh=mesh,
-        )
-        t.add("reseed.extend.ext", time.perf_counter() - t0)
-        t0d = time.perf_counter()
-        mapped = deconseq(cand_cons, src, full, slice_memo)
-        t.add("reseed.extend.deconseq", time.perf_counter() - t0d)
-        t.add("reseed.extend", time.perf_counter() - t0)
+        with t.span("reseed.occ", round=round_no):
+            with t.span("reseed.occ.rest"):
+                occ = occupancy(arena, bs.blocks)
+                full = BlockSet(
+                    arena,
+                    list(bs.blocks) + rest_blocks(
+                        arena, occ, rest_cache, stats=t.counters
+                    ),
+                )
+            with t.span("reseed.occ.canon"):
+                full.canonicalize(canon_memo, stats=t.counters)
+            with t.span("reseed.occ.hash"):
+                h = blockset_hash(full, hash_memo)
+            if h == prev_hash and k <= cfg.MIN_ANCHOR_SIZE:
+                # unchanged blockset and no finer seed size left: the deep
+                # IsPangenome probe at k=MIN is proven non-improving
+                t.count("deep.proven_at_kmin", 1)
+                break
+            prev_hash = h
+            k = max(cfg.MIN_ANCHOR_SIZE, k - (cfg.RESEED_SHRINK if round_no else 0))
+        t.count("reseed.rounds", 1)
+        tags = dict(round=round_no, k=k)
+        with t.span("reseed.cons", **tags):
+            with t.span("reseed.cons.arena"):
+                cons, src = consensus_arena(full, cons_cache, stats=t.counters)
+            with t.span("reseed.cons.upload"):
+                for d in devices:
+                    upload_arena(cons, d, timings=t)
+        with t.span("reseed.scan", **tags):
+            groups = scan(cons, k)
+        with t.span("reseed.extend", **tags):
+            with t.span("reseed.extend.ext"):
+                cand_cons = extend_anchor_groups(
+                    cons, groups, cfg, dev, timings=t,
+                    counter_prefix="reseed.extend", mesh=mesh,
+                )
+            with t.span("reseed.extend.deconseq"):
+                mapped = deconseq(cand_cons, src, full, slice_memo, timings=t)
+        t.count("reseed.mapped", len(mapped))
         log(
             f"reseed {round_no}: k={k} {groups.n_groups} cons-groups -> "
             f"{len(mapped)} mapped candidates"
@@ -228,23 +213,24 @@ def build_pangenome(
                 break
             # finer seeds may still find hits: exhaust the k schedule
             continue
-        t0 = time.perf_counter()
-        accepted = resolve_overlaps(
-            [b for b in bs.blocks if b.n_frags >= 2] + mapped, arena, cfg
-        )
-        bs = BlockSet(arena, accepted)
-        t.add("reseed.resolve", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        join_blocks(bs, cfg, join_cache, join_rejected)
-        t.add("reseed.join", time.perf_counter() - t0)
+        with t.span("reseed.resolve", **tags):
+            accepted = resolve_overlaps(
+                [b for b in bs.blocks if b.n_frags >= 2] + mapped, arena, cfg,
+                timings=t,
+            )
+            with t.span("blockset"):
+                bs = BlockSet(arena, accepted)
+        with t.span("reseed.join", **tags):
+            join_blocks(bs, cfg, join_cache, join_rejected)
         if cfg.GAPPED_EXTEND:
-            t0 = time.perf_counter()
-            if gapped_extend_blocks(
-                bs, cfg, dev, timings=t, probe_cache=gapext_cache
-            ):
-                join_blocks(bs, cfg, join_cache, join_rejected)
-            t.add("reseed.gapext", time.perf_counter() - t0)
-        metric = quality_metric(bs)
+            with t.span("reseed.gapext", **tags):
+                if gapped_extend_blocks(
+                    bs, cfg, dev, timings=t, probe_cache=gapext_cache
+                ):
+                    with t.span("rejoin"):
+                        join_blocks(bs, cfg, join_cache, join_rejected)
+        with t.span("reseed.quality", **tags):
+            metric = quality_metric(bs)
         log(
             f"reseed {round_no}: -> {len(bs.blocks)} blocks after "
             f"resolve+join, metric={metric}"
@@ -252,7 +238,9 @@ def build_pangenome(
         # a round that fails to improve the quality metric is reverted; the
         # loop then continues with a finer k
         if metric <= best_metric:
-            bs = BlockSet(arena, snapshot)
+            with t.span("reseed.revert", **tags):
+                bs = BlockSet(arena, snapshot)
+            t.count("reseed.reverted", 1)
             log(f"reseed {round_no}: no improvement at k={k}, reverting")
             if k <= cfg.MIN_ANCHOR_SIZE:
                 t.count("deep.proven_at_kmin", 1)
@@ -261,13 +249,11 @@ def build_pangenome(
         best_metric = metric
         snapshot = list(bs.blocks)
 
-    t0 = time.perf_counter()
-    occ = occupancy(arena, bs.blocks)
-    bs.blocks.extend(rest_blocks(arena, occ))
-    t.add("rest", time.perf_counter() - t0)
+    with t.span("rest"):
+        occ = occupancy(arena, bs.blocks)
+        bs.blocks.extend(rest_blocks(arena, occ))
 
-    t0 = time.perf_counter()
-    assign_names(bs)
-    t.add("names", time.perf_counter() - t0)
+    with t.span("names"):
+        assign_names(bs)
     log(f"total blocks: {len(bs.blocks)}")
-    return bs, t
+    return bs

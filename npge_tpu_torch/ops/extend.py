@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from npge_tpu_torch.device import to_host
+
 
 # mirrors npge_tpu/ops/extend.py:make_codes2
 def make_codes2(codes: torch.Tensor) -> torch.Tensor:
@@ -102,11 +104,13 @@ def extend_rounds(
     ident_den: int,
     chunk: int,
     max_rounds: int,
+    timings=None,
 ):
     """All extension rounds of one batch. Returns (total ext[B] int32
     tensor, rounds executed). After each chunk, groups that did not
     consume the full chunk freeze (cap -> 0), so results never depend on
-    other groups in the batch triggering more rounds."""
+    other groups in the batch triggering more rounds. Each round's check
+    for a group still extending is a readback, booked in ``timings``."""
     B = base.shape[0]
     z = torch.zeros(B, dtype=torch.int32, device=codes2.device)
     cl, ci, total = z, z, z
@@ -118,7 +122,7 @@ def extend_rounds(
         rounds += 1
         total = total + ext
         active = ext == chunk
-        if not bool(active.any()):
+        if not bool(to_host(active.any(), timings)):
             break
         e = ext[:, None]
         base = base + e

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from npge_tpu_torch.device import to_device, to_host
+
 # Window-min fill, at or above every valid key. For k <= 31 keys are below
 # 4^31. For k = 32 int64 max is the all-T 32-mer, which is never canonical:
 # its reverse complement, all-A, is smaller.
@@ -111,12 +113,12 @@ def minimizer_mask(key: torch.Tensor, valid: torch.Tensor, w: int) -> torch.Tens
 
 # mirrors npge_tpu/ops/kmers.py:_sid_from_offsets
 def _sid_from_offsets(
-    offsets: np.ndarray, T: int, device, start: int = 0
+    offsets: np.ndarray, T: int, device, start: int = 0, timings=None
 ) -> torch.Tensor:
     """int32 sequence id of positions start .. start+T-1 from the offsets
     table; positions at or past offsets[-1] get -1."""
     pos = torch.arange(start, start + T, dtype=torch.int64, device=device)
-    off = torch.as_tensor(np.asarray(offsets, np.int64), device=device)
+    off = to_device(np.asarray(offsets, np.int64), device, timings)
     sid = torch.searchsorted(off, pos, right=True) - 1
     return torch.where(pos >= off[-1], -1, sid).to(torch.int32)
 
@@ -133,7 +135,7 @@ def select_occurrences(codes: torch.Tensor, seq_id_of: torch.Tensor, k: int, w: 
 # mirrors npge_tpu/ops/kmers.py:find_anchor_occurrences (its CPU branch)
 def find_anchor_occurrences(
     codes, seq_id_of, k: int, w: int, device,
-    offsets: np.ndarray | None = None, want_gid: bool = False,
+    offsets: np.ndarray | None = None, want_gid: bool = False, timings=None,
 ):
     """Scan -> minimizer sample -> compact -> sort by (key, position).
 
@@ -142,7 +144,8 @@ def find_anchor_occurrences(
     device. Returns host numpy arrays (key int64, pos int64, strand int8),
     one row per sampled valid non-palindromic occurrence, or with
     ``want_gid`` (gid int64, pos, strand) where gid numbers the same-key
-    runs densely."""
+    runs densely. Host arrays moved to the device and the readback are
+    booked in ``timings``."""
     T = int(codes.shape[0])
     Tp = 1 << max(0, T - 1).bit_length()
     if Tp >= 1 << 31:  # the reference's int32-position guard
@@ -150,15 +153,20 @@ def find_anchor_occurrences(
     if T == 0:
         e = np.zeros(0, np.int64)
         return e, e.copy(), np.zeros(0, np.int8)
-    codes = torch.as_tensor(codes, device=device)
-    if seq_id_of is None:
-        seq_id_of = _sid_from_offsets(offsets, T, codes.device)
+    if isinstance(codes, torch.Tensor):
+        codes = torch.as_tensor(codes, device=device)
     else:
+        codes = to_device(codes, device, timings)
+    if seq_id_of is None:
+        seq_id_of = _sid_from_offsets(offsets, T, codes.device, timings=timings)
+    elif isinstance(seq_id_of, torch.Tensor):
         seq_id_of = torch.as_tensor(seq_id_of, device=codes.device)
+    else:
+        seq_id_of = to_device(seq_id_of, codes.device, timings)
     key, idx, strand = select_occurrences(codes, seq_id_of, k, w)
     key, order = torch.sort(key, stable=True)
     idx, strand = idx[order], strand[order]
-    key, idx, strand = key.cpu().numpy(), idx.cpu().numpy(), strand.cpu().numpy()
+    key, idx, strand = (to_host(x, timings).numpy() for x in (key, idx, strand))
     if want_gid:
         new = np.ones(len(key), bool)
         new[1:] = key[1:] != key[:-1]

@@ -10,7 +10,10 @@ best_i, best_j) rows; see the kernel source for the recurrence.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from npge_tpu_torch.device import to_device
 
 NEG = -(1 << 29)
 
@@ -173,6 +176,7 @@ def sw_extend_windows(
     q_n_code: int = 250, t_n_code: int = 251,
     W: int = 128,
     match: int = 1, mismatch: int = -2, gap: int = -3, xdrop: int = 64,
+    timings=None,
 ) -> torch.Tensor:
     """Batched x-drop endpoints over contiguous windows of ``codes2``.
 
@@ -180,12 +184,19 @@ def sw_extend_windows(
     codes2[tb[p] : tb[p]+tcap[p]] (caps clipped to L); N codes map to
     ``q_n_code`` / ``t_n_code``. Returns int32 [P, 3] (best, best_i,
     best_j) on ``codes2``'s device: the CUDA kernel for a CUDA tensor, the
-    plain torch version for a CPU tensor."""
+    plain torch version for a CPU tensor. Host arrays moved to the device
+    are booked in ``timings``."""
     dev = codes2.device
-    qb = torch.as_tensor(qb, device=dev).to(torch.int64).contiguous()
-    tb = torch.as_tensor(tb, device=dev).to(torch.int64).contiguous()
-    qcap = torch.clamp(torch.as_tensor(qcap, device=dev), max=L)
-    tcap = torch.clamp(torch.as_tensor(tcap, device=dev), max=L)
+
+    def put(x):
+        if isinstance(x, torch.Tensor):
+            return torch.as_tensor(x, device=dev)
+        return to_device(np.asarray(x), dev, timings)
+
+    qb = put(qb).to(torch.int64).contiguous()
+    tb = put(tb).to(torch.int64).contiguous()
+    qcap = torch.clamp(put(qcap), max=L)
+    tcap = torch.clamp(put(tcap), max=L)
     qcap = qcap.to(torch.int32).contiguous()
     tcap = tcap.to(torch.int32).contiguous()
     sw = dict(match=match, mismatch=mismatch, gap=gap, xdrop=xdrop)

@@ -27,7 +27,6 @@ group of more than one rank (:func:`multiprocess`).
 from __future__ import annotations
 
 import os
-import time
 
 import numpy as np
 import torch
@@ -35,9 +34,10 @@ import torch.distributed as dist
 
 from npge_tpu_torch.algo.anchors import AnchorGroups, find_anchors, form_groups
 from npge_tpu_torch.config import Config
-from npge_tpu_torch.device import upload_arena
+from npge_tpu_torch.device import to_host, upload_arena
 from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.ops.kmers import _sid_from_offsets, select_occurrences
+from npge_tpu_torch.trace import span
 
 
 def init_distributed() -> tuple[int, int]:
@@ -80,36 +80,34 @@ def host_slice(total: int, pi: int, pc: int) -> tuple[int, int]:
 def allgather(x: np.ndarray, timings=None) -> np.ndarray:
     """[world size, *x.shape]: ``x`` of every process in rank order (every
     process passes the same shape and dtype). A gloo all_gather of CPU
-    tensors; ``timings`` books its wall time as ``mp.gather``."""
-    t0 = time.perf_counter()
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(out, t)
-    g = torch.stack(out).numpy()
-    if timings is not None:
-        timings.add("mp.gather", time.perf_counter() - t0)
-    return g
+    tensors; ``timings`` books its wall time as span ``mp.gather``."""
+    with span(timings, "mp.gather"):
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        out = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, t)
+        return torch.stack(out).numpy()
 
 
 # mirrors npge_tpu/parallel/distributed.py:scan_slice
 def scan_slice(
-    arena: GenomeArena, cfg: Config, k: int, lo: int, hi: int, device
+    arena: GenomeArena, cfg: Config, k: int, lo: int, hi: int, device,
+    timings=None,
 ):
     """Scan position slice [lo, hi) on ``device`` with a halo of
     k - 1 + 2w on both sides; returns the slice's own occurrences
     (key int64, pos int64, strand int8) as host arrays in position order.
-    The union over a partition of [0, T) is the single-device scan."""
+    The union over a partition of [0, T) is the single-device scan.
+    ``timings`` receives the transfers."""
     T = arena.total_length
     halo = k - 1 + 2 * cfg.MINIMIZER_WINDOW
     a = max(0, lo - halo)
     b = min(T, hi + halo)
-    codes = upload_arena(arena, device)[0][a:b]
-    sid = _sid_from_offsets(arena.offsets, b - a, codes.device, start=a)
+    codes = upload_arena(arena, device, timings)[0][a:b]
+    sid = _sid_from_offsets(arena.offsets, b - a, codes.device, start=a, timings=timings)
     key, idx, strand = select_occurrences(codes, sid, k, cfg.MINIMIZER_WINDOW)
     own = (idx >= lo - a) & (idx < hi - a)
-    return (
-        key[own].cpu().numpy(), (idx[own] + a).cpu().numpy(),
-        strand[own].cpu().numpy(),
+    return tuple(
+        to_host(x, timings).numpy() for x in (key[own], idx[own] + a, strand[own])
     )
 
 
@@ -136,10 +134,10 @@ def multihost_find_anchors(
         arena.circular(i) and arena.seq_len(i) >= k
         for i in range(arena.n_seqs)
     ):
-        return find_anchors(arena, cfg, device, k=k)
+        return find_anchors(arena, cfg, device, k=k, timings=timings)
     pi, pc = process_index_count()
     lo, hi = host_slice(arena.total_length, pi, pc)
-    key, pos, strand = scan_slice(arena, cfg, k, lo, hi, device)
+    key, pos, strand = scan_slice(arena, cfg, k, lo, hi, device, timings)
     if pc > 1:
         # padded all_gather of every process's rows; strand travels as
         # int64 beside the key and position
