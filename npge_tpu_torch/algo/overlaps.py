@@ -69,34 +69,31 @@ class _FlatCandidates:
             self.ncols[ne] = self.length[self.offs[:-1][ne]]
             self.gapless = np.ones(G, bool)
         else:
-            self.nfr = np.fromiter(
-                (b.n_frags for b in cand), np.int64, G
-            ) if G else np.zeros(0, np.int64)
-            self.ncols = np.fromiter(
-                (b.n_cols for b in cand), np.int64, G
-            ) if G else np.zeros(0, np.int64)
+            cols = [[], [], [], []]
+            for b in cand:
+                f = b.frags
+                cols[0].append(f.seq_id)
+                cols[1].append(f.start)
+                cols[2].append(f.length)
+                cols[3].append(f.ori)
+            self.nfr = np.fromiter(map(len, cols[0]), np.int64, G)
             self.offs = np.zeros(G + 1, np.int64)
             np.cumsum(self.nfr, out=self.offs[1:])
-            if G:
-                self.seq = np.concatenate(
-                    [b.frags.seq_id for b in cand]
-                ).astype(np.int64)
-                self.start = np.concatenate(
-                    [b.frags.start for b in cand]
-                ).astype(np.int64)
-                self.length = np.concatenate(
-                    [b.frags.length for b in cand]
-                ).astype(np.int64)
-                self.ori = np.concatenate(
-                    [b.frags.ori for b in cand]
-                ).astype(np.int64)
-            else:
-                self.seq = self.start = self.length = self.ori = np.zeros(
-                    0, np.int64
-                )
+            self.seq, self.start, self.length, self.ori = (
+                np.concatenate(c).astype(np.int64) if G
+                else np.zeros(0, np.int64)
+                for c in cols
+            )
             self.gapless = np.fromiter(
-                (b.is_gapless for b in cand), bool, G
-            ) if G else np.zeros(0, bool)
+                (b.alignment is None for b in cand), bool, G
+            )
+            # a gapless block is as wide as its fragments, a gapped one
+            # as its alignment
+            self.ncols = np.zeros(G, np.int64)
+            ne = (self.nfr > 0) & self.gapless
+            self.ncols[ne] = self.length[self.offs[:-1][ne]]
+            for i in np.flatnonzero(~self.gapless).tolist():
+                self.ncols[i] = cand[i].alignment.shape[1]
 
     def block(self, i: int) -> Block:
         return self.cand[i]

@@ -57,7 +57,8 @@ class GenomeArena:
         if len(set(names)) != len(names):
             raise ValueError("duplicate sequence names")
         self.names: list[str] = list(names)
-        self.parsed: list[SeqName] = [SeqName.parse(n) for n in names]
+        self._parsed: list[SeqName] | None = [SeqName.parse(n) for n in names]
+        self._circ = np.array([p.circular for p in self._parsed], dtype=bool)
         seqs = [np.ascontiguousarray(s, dtype=np.uint8) for s in seqs]
         for n, s in zip(names, seqs):
             if s.ndim != 1 or (s.size and s.max() > C.N):
@@ -67,7 +68,34 @@ class GenomeArena:
         self.codes = (
             np.concatenate(seqs) if seqs else np.zeros(0, dtype=np.uint8)
         )
-        self._name_to_id = {n: i for i, n in enumerate(names)}
+        self._name_to_id: dict[str, int] | None = {
+            n: i for i, n in enumerate(names)
+        }
+
+    @classmethod
+    def from_flat(
+        cls, names: list[str], codes: np.ndarray, offsets: np.ndarray,
+        circular: np.ndarray,
+    ) -> "GenomeArena":
+        """An arena of sequences the program made itself: ``codes`` (uint8,
+        0..4) laid end to end at ``offsets`` (int64[n+1]), distinct
+        ``names`` and their circularity flags. Trusted: nothing is checked
+        or parsed here; ``parsed`` and the name index are built on first
+        use."""
+        self = cls.__new__(cls)
+        self.names = names
+        self._parsed = None
+        self._circ = np.asarray(circular, dtype=bool)
+        self.offsets = offsets
+        self.codes = codes
+        self._name_to_id = None
+        return self
+
+    @property
+    def parsed(self) -> list[SeqName]:
+        if self._parsed is None:
+            self._parsed = [SeqName.parse(n) for n in self.names]
+        return self._parsed
 
     # ---- basic accessors ----
     @property
@@ -82,6 +110,8 @@ class GenomeArena:
         return int(self.offsets[seq_id + 1] - self.offsets[seq_id])
 
     def seq_id(self, name: str) -> int:
+        if self._name_to_id is None:
+            self._name_to_id = {n: i for i, n in enumerate(self.names)}
         return self._name_to_id[name]
 
     def seq_codes(self, seq_id: int) -> np.ndarray:
@@ -107,7 +137,7 @@ class GenomeArena:
         return np.cumsum(out, dtype=np.int32) if out.size else out
 
     def circular(self, seq_id: int) -> bool:
-        return self.parsed[seq_id].circular
+        return bool(self._circ[seq_id])
 
     # ---- fragment text ----
     def circ_codes(self, seq_id: int, lo: int, length: int) -> np.ndarray:

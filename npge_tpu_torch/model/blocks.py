@@ -73,6 +73,20 @@ class Block:
         elif len(frags) > 1 and len(set(frags.length.tolist())) > 1:
             raise ValueError("gapless block requires equal fragment lengths")
 
+    @classmethod
+    def trusted(
+        cls, frags: FragmentTable, alignment: np.ndarray | None = None,
+    ) -> "Block":
+        """A block the program built consistent by construction (gapless
+        fragments of one length, or alignment rows one a fragment), made
+        without ``__init__``'s checks."""
+        self = cls.__new__(cls)
+        self.frags = frags
+        self.alignment = alignment
+        self.name = None
+        self._nongap_cum = None
+        return self
+
     # ---- shape ----
     @property
     def n_frags(self) -> int:

@@ -33,6 +33,17 @@ class FragmentTable:
         if not (len(self.start) == len(self.length) == len(self.ori) == n):
             raise ValueError("column length mismatch")
 
+    @classmethod
+    def trusted(cls, seq_id, start, length, ori) -> "FragmentTable":
+        """A table of columns the program made itself: int32 arrays of
+        one length, taken as they are (no conversion, no check)."""
+        self = cls.__new__(cls)
+        self.seq_id = seq_id
+        self.start = start
+        self.length = length
+        self.ori = ori
+        return self
+
     def __len__(self) -> int:
         return len(self.seq_id)
 
