@@ -24,6 +24,7 @@ from npge_tpu_torch.ops.extend import bases_for_groups, extend_rounds
 from npge_tpu_torch.parallel.distributed import (
     allgather, host_slice, multiprocess, process_index_count,
 )
+from npge_tpu_torch.trace import span
 from npge_tpu_torch.util.csr import csr_gather
 
 # target element budget per (B, F, S) window gather of one side; both sides
@@ -166,7 +167,12 @@ def extend_anchor_groups(
     With ``mesh`` (a ``parallel.mesh.DeviceMesh``) every stacked batch is
     split into contiguous row slices, one per mesh device, each extended
     over that device's copy of the arena; the cells counter takes the most
-    rounds of any slice, which is what the whole batch runs. In a process
+    rounds of any slice, which is what the whole batch runs. Each slice
+    (its uploads, rounds and readback) is then a span
+    ``mesh.extend.slice`` (tags ``card``: the shard's index, and
+    ``prefix``: ``counter_prefix``), and shard i's padded slot rounds are
+    also counted as ``mesh.extend.slot_rounds.s<i>``, so that they sum to
+    the ``.slot_rounds`` of every prefix. In a process
     group of more than one rank (and no mesh) each process extends a
     contiguous slice of every F-bucket's groups, books
     ``mp.<counter_prefix>_groups_total`` and ``_owned``, and the per-group
@@ -179,6 +185,7 @@ def extend_anchor_groups(
         mesh.slices if mesh is not None
         else lambda n: [(resolve_device(device), 0, n)]
     )
+    slice_book = timings if mesh is not None else None
     proc_shard = mesh is None and multiprocess()
     pi, pc = process_index_count()
     T = arena.total_length
@@ -227,15 +234,17 @@ def extend_anchor_groups(
             nvalid = np.concatenate([nocc, nocc])
             total = np.zeros(2 * B, np.int32)
             rounds = 0
-            for dev, r0, r1 in shards(2 * B):
+            for i, (dev, r0, r1) in enumerate(shards(2 * B)):
                 if r0 == r1:
                     continue
-                tot, r = extend_rounds(
-                    upload_arena(arena, dev, timings)[1],
-                    *(to_device(x[r0:r1], dev, timings) for x in (base2, fm2, cap2)),
-                    num, den, chunk, max_rounds, timings,
-                )
-                total[r0:r1] = to_host(tot, timings).numpy()
+                with span(slice_book, "mesh.extend.slice", card=i,
+                          prefix=counter_prefix):
+                    tot, r = extend_rounds(
+                        upload_arena(arena, dev, timings)[1],
+                        *(to_device(x[r0:r1], dev, timings) for x in (base2, fm2, cap2)),
+                        num, den, chunk, max_rounds, timings,
+                    )
+                    total[r0:r1] = to_host(tot, timings).numpy()
                 rounds = max(rounds, r)
                 if timings is not None:
                     timings.count(f"{counter_prefix}.rounds", r)
@@ -244,6 +253,8 @@ def extend_anchor_groups(
                         f"{counter_prefix}.useful_slot_rounds",
                         live_slot_rounds(total[r0:r1], nvalid[r0:r1], chunk, r),
                     )
+                if slice_book is not None:
+                    slice_book.count(f"mesh.extend.slot_rounds.s{i}", (r1 - r0) * fb * r)
             results_l[batch] = total[:B]
             results_r[batch] = total[B:]
             if timings is not None:

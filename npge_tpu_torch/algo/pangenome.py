@@ -60,6 +60,8 @@ def build_pangenome(
     multiproc = mesh is None and multiprocess()
     devices = list(dict.fromkeys(mesh.devices)) if mesh is not None else [dev]
     t = StageTimings()
+    if mesh is not None:
+        mesh = mesh.traced(t)  # the mesh's stages book their slices in t
     with t.span("build"):
         bs = _build(arena, cfg, dev, devices, mesh, multiproc, t, verbose)
     return bs, t

@@ -10,6 +10,11 @@ Devices are always named by the caller. :func:`make_mesh` takes the first
 n distinct visible devices of a kind and raises when fewer exist; a mesh
 that repeats a device (n shards on one card, or on the CPU, which torch
 sees as one device) is built only by writing the list out.
+
+A mesh may carry a build's tracer (:meth:`DeviceMesh.traced`): the stages
+that take the mesh book each shard's slice there, so the tracer reaches
+them without a new argument (``sharded_find_anchors`` keeps the signature
+``(arena, cfg, mesh, k=None)`` that the benchmark's recorder wraps).
 """
 
 from __future__ import annotations
@@ -21,12 +26,19 @@ from npge_tpu_torch.parallel.distributed import host_slice
 
 
 class DeviceMesh:
-    """An explicit list of devices, one shard each; a device may repeat."""
+    """An explicit list of devices, one shard each; a device may repeat.
+    ``timings``: the ``StageTimings`` of the build that runs over the mesh,
+    or None (nothing booked)."""
 
-    def __init__(self, devices):
+    def __init__(self, devices, timings=None):
         self.devices = [resolve_device(d) for d in devices]
         if not self.devices:
             raise ValueError("a DeviceMesh needs at least one device")
+        self.timings = timings
+
+    def traced(self, timings) -> "DeviceMesh":
+        """A mesh over the same devices that books into ``timings``."""
+        return DeviceMesh(self.devices, timings)
 
     @property
     def size(self) -> int:

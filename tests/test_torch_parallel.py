@@ -145,7 +145,10 @@ def _per_slice(name: str) -> bool:
 
 
 def split_free(counters: dict) -> dict:
-    return {k: v for k, v in counters.items() if not _per_slice(k)}
+    """The counters of both builds that a mesh does not split; the mesh's
+    own per-shard counters (``mesh.*``) are the single build's split."""
+    return {k: v for k, v in counters.items()
+            if not _per_slice(k) and not k.startswith("mesh.")}
 
 
 def assert_split_counters(single: dict, meshed: dict) -> None:

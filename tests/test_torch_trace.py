@@ -184,14 +184,14 @@ def test_useful_slot_rounds_equal_a_recount(monkeypatch, world, cfg_kw):
         assert c["extend.rounds"] > c["extend.batches"]
 
 
-def _tiny_root(tmp_path: Path) -> Path:
+def _tiny_root(tmp_path: Path, mesh: int = 1) -> Path:
     """A checkout's worth of the benchmark with one tiny CPU cell,
-    ``tiny.tinymix``, that every metric lists."""
+    ``tiny.tinymix``, that every metric lists; ``mesh`` shards on the CPU."""
     shutil.copytree(REPO / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     cfg = {"name": "tiny", "source": "test", "reduced": [], "assumed": [],
-           "chips": 1, "mesh": 1, "n_genomes": 4, "genome_length": 6000,
+           "chips": 1, "mesh": mesh, "n_genomes": 4, "genome_length": 6000,
            "circular": False, "pipeline": {}}
     (tmp_path / "portbench" / "configs" / "tiny.json").write_text(json.dumps(cfg))
     (tmp_path / "portbench" / "traffic" / "tinymix.json").write_text(
@@ -236,6 +236,8 @@ def test_harness_reads_the_new_metrics_on_a_tiny_cell(tmp_path):
         v = line["metrics"][name]["value"]
         assert isinstance(v, (int, float)) and v >= 0, name
     assert 0 < line["metrics"]["extend_useful_share"]["value"] <= 100
+    # a one-card build books nothing that the mesh's readers read
+    assert not [m for m in line["metrics"] if m.startswith("mesh_")]
     assert red["n_builds"] == 1 and red["build_self_s"] < 0.02 * red["build_s"]
     # on the CPU the whole window is idle: it is booked to the spans
     idle = sum(red["idle_by_span_s"].values())
