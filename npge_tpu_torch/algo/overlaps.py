@@ -248,6 +248,20 @@ def _admit_python(
                 occ[row[0]][a0:a1] = 1
 
 
+def _output_bound(fc: "_FlatCandidates", order, fast, arena, cfg: Config):
+    """(pieces, fragment rows) that admitting candidates ``order`` writes
+    at most. A piece is a free run of at least m = max(MIN_LENGTH, 1)
+    columns and runs are parted by an occupied column, so a candidate of n
+    columns gives at most (n + 1) // (m + 1) pieces of at most its F rows.
+    Every fragment of a ``fast`` candidate's piece holds m positions of its
+    own, so those rows are also at most total_length // m."""
+    m = max(cfg.MIN_LENGTH, 1)
+    k = (fc.ncols[order] + 1) // (m + 1)
+    rows = fc.nfr[order] * k
+    general = int(rows[~fast[order]].sum())
+    return int(k.sum()), min(int(rows.sum()), arena.total_length // m + general)
+
+
 def resolve_overlaps(
     cand, arena: GenomeArena, cfg: Config, use_native: bool = True,
     timings=None,
@@ -259,91 +273,84 @@ def resolve_overlaps(
     columnar output — the whole admission pipeline then runs off the SoA
     arrays without materializing per-candidate objects).
 
-    Gapless candidates run through the C++ fast path
-    (native.resolve_gapless, exact same semantics); gapped candidates (and
-    everything, when the native library is absent) run the Python path.
-    Both share one occupancy bitmap, processed in one global greedy order,
-    so results are identical either way (parity-tested). ``timings``
-    receives spans ``resolve.native``, ``resolve.python`` (each a run of
-    consecutive candidates of one path) and ``resolve.blocks`` (the admitted
-    native rows made into Blocks), and the eligible candidates by path,
-    ``resolve.native_cands`` and ``resolve.python_cands``."""
+    Every eligible candidate, gapless or gapped, wrapping or not, is
+    admitted in one global greedy order against one occupancy bitmap by
+    one C++ call (native.resolve_overlaps, exact same semantics); without
+    the native library the same order runs through ``_admit_python``, so
+    results are identical either way (parity-tested). ``timings`` receives
+    spans ``resolve.native`` (the call), ``resolve.blocks`` (its pieces
+    made into Blocks) and ``resolve.python`` (the no-library path), and
+    the eligible candidates by path, ``resolve.native_cands`` and
+    ``resolve.python_cands``, the gapped or wrapping ones among the
+    native, ``resolve.native_gapped_cands``, and ``resolve.native_calls``."""
     from npge_tpu_torch import native
 
     occ_concat = np.zeros(arena.total_length, np.uint8)
-    occ = [
-        occ_concat[arena.offsets[i] : arena.offsets[i + 1]]
-        for i in range(arena.n_seqs)
-    ]
     fc = _FlatCandidates(cand, arena)
     order, wraps = _admission_order_and_wraps(fc, arena)
-    # per-candidate admissibility + native-path eligibility, vectorized
-    eligible = (fc.nfr >= 2) & (fc.ncols >= cfg.MIN_LENGTH)
-    accepted: list[Block] = []
+    order = order[(fc.nfr[order] >= 2) & (fc.ncols[order] >= cfg.MIN_LENGTH)]
+    # gapless candidates inside their sequences: the C++ streaming path
+    fast = fc.gapless & ~wraps
     native_ok = use_native and native.have_native()
-    nat = native_ok & fc.gapless & ~wraps
     if timings is not None:
-        timings.count("resolve.native_cands", int((eligible & nat).sum()))
-        timings.count("resolve.python_cands", int((eligible & ~nat).sum()))
-    i = 0
-    while i < len(order):
-        # maximal run of consecutive candidates of one path: gapless
-        # non-wrap ones in one C++ call (the native path assumes
-        # start+length <= seq_len), the others one at a time
-        j = i
-        while j < len(order) and nat[order[j]] == nat[order[i]]:
-            j += 1
-        seg_ids = order[i:j]
-        seg_ids = seg_ids[eligible[seg_ids]]
-        python_path = not nat[order[i]]
-        i = j
-        if not len(seg_ids):
-            continue
-        if python_path:
-            with span(timings, "resolve.python"):
-                for ci in seg_ids:
-                    _admit_python(
-                        fc.block(int(ci)), arena, cfg, occ, accepted, occ_concat
-                    )
-            continue
-        offs, f_seq, f_start, f_len, f_ori = fc.frag_rows(seg_ids)
-        with span(timings, "resolve.native"):
-            res = native.resolve_gapless(
-                arena.codes, arena.offsets, occ_concat,
-                offs, f_seq.astype(np.int32), f_start.astype(np.int32),
-                f_len.astype(np.int32), f_ori.astype(np.int32),
-                np.arange(len(seg_ids), dtype=np.int64),
-                cfg.MIN_LENGTH, cfg.MIN_END,
-                cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den,
-            )
-        out_off, o_seq, o_start, o_len, o_ori, o_src = res
-        with span(timings, "resolve.blocks"):
-            for k in range(len(out_off) - 1):
-                a, e = int(out_off[k]), int(out_off[k + 1])
-                src_ci = int(seg_ids[int(o_src[k])])
-                sa, se = int(fc.offs[src_ci]), int(fc.offs[src_ci + 1])
-                # candidate admitted whole -> for list candidates reuse the
-                # input Block OBJECT: downstream caches (join stats, rejected
-                # probes, consensus) key by object identity across reseed
-                # rounds. Batch candidates are freshly created, so a fresh
-                # materialization is equivalent.
-                if (
-                    not fc.is_batch
-                    and e - a == se - sa
-                    and int(o_len[a]) == int(fc.ncols[src_ci])
-                    and np.array_equal(
-                        o_start[a:e].astype(np.int64), fc.start[sa:se]
-                    )
-                ):
-                    accepted.append(fc.block(src_ci))
-                    continue
-                accepted.append(
-                    Block(
-                        FragmentTable(
-                            o_seq[a:e], o_start[a:e], o_len[a:e], o_ori[a:e]
-                        )
-                    )
+        n_native = len(order) if native_ok else 0
+        timings.count("resolve.native_cands", n_native)
+        timings.count("resolve.python_cands", len(order) - n_native)
+        timings.count(
+            "resolve.native_gapped_cands",
+            int((~fast[order]).sum()) if native_ok else 0,
+        )
+        timings.count("resolve.native_calls", int(native_ok))
+    accepted: list[Block] = []
+    if not native_ok:
+        occ = [
+            occ_concat[arena.offsets[i] : arena.offsets[i + 1]]
+            for i in range(arena.n_seqs)
+        ]
+        with span(timings, "resolve.python"):
+            for ci in order.tolist():
+                _admit_python(
+                    fc.block(ci), arena, cfg, occ, accepted, occ_concat
                 )
+        return accepted
+    # the gapped candidates' alignments by address; ``alns`` keeps them
+    # alive through the call
+    gapped = order[~fc.gapless[order]].tolist()
+    alns = [
+        np.ascontiguousarray(fc.block(ci).alignment, np.uint8) for ci in gapped
+    ]
+    aln_ptrs = np.zeros(len(fc.nfr), np.uint64)
+    aln_ptrs[gapped] = [a.ctypes.data for a in alns]
+    with span(timings, "resolve.native"):
+        (out_off, o_seq, o_start, o_len, o_ori, o_row,
+         o_src, o_c0, o_c1, o_whole) = native.resolve_overlaps(
+            arena.codes, arena.offsets, occ_concat,
+            fc.offs, fc.seq, fc.start, fc.length, fc.ori, fc.ncols,
+            aln_ptrs, order, cfg.MIN_LENGTH, cfg.MIN_END,
+            cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den,
+            *_output_bound(fc, order, fast, arena, cfg),
+        )
+    with span(timings, "resolve.blocks"):
+        offs = out_off.tolist()
+        pieces = zip(o_src.tolist(), o_c0.tolist(), o_c1.tolist(),
+                     o_whole.tolist())
+        for k, (ci, c0, c1, whole) in enumerate(pieces):
+            # candidate admitted whole -> for list candidates reuse the
+            # input Block OBJECT: downstream caches (join stats, rejected
+            # probes, consensus) key by object identity across reseed
+            # rounds. Batch candidates are freshly created, so a fresh
+            # materialization is equivalent.
+            if whole and not fc.is_batch:
+                b = fc.block(ci)
+                accepted.append(b if fast[ci] else normalize_wrap_starts(b, arena))
+                continue
+            a, e = offs[k], offs[k + 1]
+            frags = FragmentTable(o_seq[a:e], o_start[a:e], o_len[a:e], o_ori[a:e])
+            if fc.gapless[ci]:
+                accepted.append(Block(frags))
+            else:  # the rows with a base in the columns, as Block.slice
+                aln = fc.block(ci).alignment[:, c0:c1]
+                accepted.append(Block(frags, aln[o_row[a:e]]))
     return accepted
 
 

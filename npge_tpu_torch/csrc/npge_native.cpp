@@ -11,8 +11,10 @@
 // are caller-allocated numpy arrays; functions return element counts or
 // negative error codes.
 
+#include <algorithm>
 #include <cstdint>
 #include <cstring>
+#include <vector>
 
 namespace {
 
@@ -166,15 +168,27 @@ void npge_free_mask_and(const unsigned char* occ, int64_t occ_len,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Greedy gapless overlap resolution — the host hot loop of the pipeline
-// (algo/overlaps.py resolve_overlaps, C++ fast path). Exact same semantics
-// as the Python implementation; parity-tested. Candidates are gapless
-// multi-fragment blocks in CSR form; admission slices each candidate to its
-// free column runs, re-checks the good-block predicate (identity as exact
-// integer rational; identical first/last min_end columns), extracts the
-// longest good slice when a run fails, and marks occupancy.
+// Greedy overlap resolution — the host hot loop of the pipeline
+// (algo/overlaps.py resolve_overlaps). One call admits every eligible
+// candidate, in the global admission order, against one occupancy buffer,
+// with the exact semantics of overlaps._admit_python (parity-tested).
+// Admission slices each candidate to its free column runs, re-checks the
+// good-block predicate (identity as exact integer rational; identical
+// first/last min_end columns), extracts the longest good slice when a run
+// fails, and marks occupancy.
+//
+// A candidate takes one of two paths, by what it holds:
+//   - gapless, every fragment inside its sequence: the streaming path,
+//     which reads codes and occupancy straight from the arena;
+//   - gapped (an alignment matrix of codes, GAP = 5) or wrapping (a
+//     fragment past the end of a circular sequence): the general path.
+//     A row's sequence positions come from a running count of its non-gap
+//     cells, taken modulo the sequence length; a piece drops the rows with
+//     no base in its columns, as Block.slice does.
 
 namespace {
+
+constexpr unsigned char kGap = 5;
 
 struct GoodSliceResult { int64_t c0, c1; bool ok; };
 
@@ -235,135 +249,358 @@ GoodSliceResult best_good_slice(const unsigned char* good, int64_t n,
     return best;
 }
 
-}  // namespace
+// model/stats.is_good_block's end test on the n columns of good:
+// good[:m].all() and good[-m:].all() with m = min(min_end, n), read by
+// Python's slice rules (m == 0 makes the second slice the whole array)
+bool ends_good(const unsigned char* good, int64_t n, int64_t min_end) {
+    int64_t m = min_end < n ? min_end : n;
+    int64_t h1 = m >= 0 ? m : (n + m > 0 ? n + m : 0);
+    int64_t t0 = m > 0 ? n - m : (m == 0 ? 0 : (-m < n ? -m : n));
+    for (int64_t i = 0; i < h1; ++i) if (!good[i]) return false;
+    for (int64_t i = t0; i < n; ++i) if (!good[i]) return false;
+    return true;
+}
 
-extern "C" {
+// occ[st, st+ln) of one sequence of length L, wrapping past its end as
+// model/fragments.frag_spans splits a wrap fragment
+void mark_span(unsigned char* oc, int64_t L, int64_t st, int64_t ln) {
+    int64_t end = st + ln;
+    if (end <= L) {
+        if (ln > 0 && st >= 0) memset(oc + st, 1, (size_t)ln);
+        return;
+    }
+    if (st < L) memset(oc + st, 1, (size_t)(L - st));
+    memset(oc, 1, (size_t)(end - L < L ? end - L : L));
+}
 
-// Returns number of output blocks, or -1 on output overflow.
-int64_t npge_resolve_gapless(
-    const unsigned char* codes, const int64_t* seq_offsets, int32_t n_seqs,
-    unsigned char* occ,  // [total_len] concatenated per-seq occupancy
-    const int64_t* cand_offsets, const int32_t* f_seq, const int32_t* f_start,
-    const int32_t* f_len, const int32_t* f_ori,
-    const int64_t* order, int64_t n_cand,
-    int64_t min_length, int64_t min_end, int64_t ident_num, int64_t ident_den,
-    int64_t* out_offsets, int32_t* o_seq, int32_t* o_start, int32_t* o_len,
-    int32_t* o_ori, int64_t* o_src,  // source candidate index per out block
-    int64_t max_out_blocks, int64_t max_out_frags) {
+struct Span { int64_t seq, a0, a1; };
+
+// The admitted pieces: fragment rows in CSR by piece (each with its row in
+// the source candidate), and for each piece its source candidate, its
+// columns [c0, c1) and whether it is the candidate admitted as it is.
+struct Pieces {
+    int64_t* offsets;
+    int32_t *seq, *start, *len, *ori, *row;
+    int64_t *src, *c0, *c1;
+    unsigned char* whole;
+    int64_t max_blocks, max_frags;
     int64_t nb = 0, nf = 0;
-    out_offsets[0] = 0;
-    // scratch reused across candidates
-    int64_t cap = 0;
-    unsigned char* freec = nullptr;
-    unsigned char* goodc = nullptr;
-    unsigned char* mnc = nullptr;
-    unsigned char* mxc = nullptr;
-    for (int64_t oi = 0; oi < n_cand; ++oi) {
-        int64_t ci = order[oi];
-        int64_t fa = cand_offsets[ci], fb = cand_offsets[ci + 1];
-        int64_t F = fb - fa;
-        if (F < 2) continue;
-        int64_t n_cols = f_len[fa];
-        if (n_cols < min_length) continue;
-        // self-overlap check (O(F^2); F is small)
-        bool selfov = false;
-        for (int64_t i = fa; i < fb && !selfov; ++i)
-            for (int64_t j = i + 1; j < fb; ++j)
-                if (f_seq[i] == f_seq[j]) {
-                    int64_t a1 = f_start[i], b1 = a1 + f_len[i];
-                    int64_t a2 = f_start[j], b2 = a2 + f_len[j];
-                    if (a1 < b2 && a2 < b1) { selfov = true; break; }
-                }
-        if (selfov) continue;
-        if (n_cols > cap) {
-            delete[] freec; delete[] goodc; delete[] mnc; delete[] mxc;
-            cap = n_cols * 2;
-            freec = new unsigned char[cap];
-            goodc = new unsigned char[cap];
-            mnc = new unsigned char[cap];
-            mxc = new unsigned char[cap];
+
+    bool room(int64_t F) const { return nb < max_blocks && nf + F <= max_frags; }
+    void frag(int64_t s, int64_t st, int64_t ln, int64_t o, int64_t r) {
+        seq[nf] = (int32_t)s; start[nf] = (int32_t)st; len[nf] = (int32_t)ln;
+        ori[nf] = (int32_t)o; row[nf] = (int32_t)r;
+        ++nf;
+    }
+    void close(int64_t ci, int64_t a0, int64_t a1, bool w) {
+        src[nb] = ci; c0[nb] = a0; c1[nb] = a1; whole[nb] = w ? 1 : 0;
+        ++nb;
+        offsets[nb] = nf;
+    }
+};
+
+// scratch reused across candidates
+struct Scratch {
+    std::vector<unsigned char> freec, goodc, mnc, mxc, rows, keep;
+    std::vector<int32_t> cum;
+    std::vector<Span> spans;
+
+    void cols(int64_t n) {
+        if ((int64_t)freec.size() < n) {
+            freec.resize(2 * n); goodc.resize(2 * n);
+            mnc.resize(2 * n); mxc.resize(2 * n);
         }
-        // free mask + per-column identity, accumulated FRAGMENT-major:
-        // each fragment's span is read with unit stride (streaming,
-        // prefetch-friendly) instead of hopping across F distant genome
-        // regions per column — the column-major form was the resolve
-        // stage's dominant cost at 17 Mbp (cache miss per access)
-        memset(freec, 1, (size_t)n_cols);
-        memset(mnc, 255, (size_t)n_cols);
-        memset(mxc, 0, (size_t)n_cols);
-        for (int64_t i = fa; i < fb; ++i) {
-            const unsigned char* cd = codes + seq_offsets[f_seq[i]];
-            const unsigned char* oc = occ + seq_offsets[f_seq[i]];
-            int64_t st = f_start[i];
-            if (f_ori[i] == 1) {
-                for (int64_t c = 0; c < n_cols; ++c) {
-                    unsigned char ch = cd[st + c];
-                    freec[c] &= (unsigned char)(oc[st + c] == 0);
-                    if (ch < mnc[c]) mnc[c] = ch;
-                    if (ch > mxc[c]) mxc[c] = ch;
-                }
-            } else {
-                int64_t last = st + f_len[i] - 1;
-                for (int64_t c = 0; c < n_cols; ++c) {
-                    unsigned char ch = cd[last - c];
-                    freec[c] &= (unsigned char)(oc[last - c] == 0);
-                    if (ch < 4) ch = (unsigned char)(3 - ch);
-                    if (ch < mnc[c]) mnc[c] = ch;
-                    if (ch > mxc[c]) mxc[c] = ch;
-                }
+    }
+};
+
+// A gapless candidate whose fragments lie inside their sequences. Returns
+// false on output overflow. Both admit_* stay out of line: inlined into
+// the dispatch loop, this one's streaming loops ran about 1.5x slower.
+__attribute__((noinline)) bool admit_gapless(
+    const unsigned char* codes, const int64_t* seq_offsets, unsigned char* occ,
+    const int64_t* f_seq, const int64_t* f_start, const int64_t* f_len,
+    const int64_t* f_ori, int64_t ci, int64_t fa, int64_t fb, int64_t n_cols,
+    int64_t min_length, int64_t min_end, int64_t ident_num, int64_t ident_den,
+    Scratch& sc, Pieces& out) {
+    int64_t F = fb - fa;
+    // self-overlap check (O(F^2); F is small)
+    for (int64_t i = fa; i < fb; ++i)
+        for (int64_t j = i + 1; j < fb; ++j)
+            if (f_seq[i] == f_seq[j]) {
+                int64_t a1 = f_start[i], b1 = a1 + f_len[i];
+                int64_t a2 = f_start[j], b2 = a2 + f_len[j];
+                if (a1 < b2 && a2 < b1) return true;
+            }
+    sc.cols(n_cols);
+    unsigned char* freec = sc.freec.data();
+    unsigned char* goodc = sc.goodc.data();
+    unsigned char* mnc = sc.mnc.data();
+    unsigned char* mxc = sc.mxc.data();
+    // free mask + per-column identity, accumulated FRAGMENT-major:
+    // each fragment's span is read with unit stride (streaming,
+    // prefetch-friendly) instead of hopping across F distant genome
+    // regions per column — the column-major form was the resolve
+    // stage's dominant cost at 17 Mbp (cache miss per access)
+    memset(freec, 1, (size_t)n_cols);
+    memset(mnc, 255, (size_t)n_cols);
+    memset(mxc, 0, (size_t)n_cols);
+    for (int64_t i = fa; i < fb; ++i) {
+        const unsigned char* cd = codes + seq_offsets[f_seq[i]];
+        const unsigned char* oc = occ + seq_offsets[f_seq[i]];
+        int64_t st = f_start[i];
+        if (f_ori[i] == 1) {
+            for (int64_t c = 0; c < n_cols; ++c) {
+                unsigned char ch = cd[st + c];
+                freec[c] &= (unsigned char)(oc[st + c] == 0);
+                if (ch < mnc[c]) mnc[c] = ch;
+                if (ch > mxc[c]) mxc[c] = ch;
+            }
+        } else {
+            int64_t last = st + f_len[i] - 1;
+            for (int64_t c = 0; c < n_cols; ++c) {
+                unsigned char ch = cd[last - c];
+                freec[c] &= (unsigned char)(oc[last - c] == 0);
+                if (ch < 4) ch = (unsigned char)(3 - ch);
+                if (ch < mnc[c]) mnc[c] = ch;
+                if (ch > mxc[c]) mxc[c] = ch;
             }
         }
-        for (int64_t c = 0; c < n_cols; ++c)
-            goodc[c] = (mnc[c] == mxc[c] && mxc[c] < 4) ? 1 : 0;
-        // maximal free runs
-        int64_t c = 0;
-        while (c < n_cols) {
-            if (!freec[c]) { ++c; continue; }
-            int64_t r0 = c;
-            while (c < n_cols && freec[c]) ++c;
-            int64_t r1 = c;
-            if (r1 - r0 < min_length) continue;
-            // goodness of the whole run
-            int64_t gsum = 0;
-            for (int64_t x = r0; x < r1; ++x) gsum += goodc[x];
+    }
+    for (int64_t c = 0; c < n_cols; ++c)
+        goodc[c] = (mnc[c] == mxc[c] && mxc[c] < 4) ? 1 : 0;
+    // maximal free runs
+    int64_t c = 0;
+    while (c < n_cols) {
+        if (!freec[c]) { ++c; continue; }
+        int64_t r0 = c;
+        while (c < n_cols && freec[c]) ++c;
+        int64_t r1 = c;
+        if (r1 - r0 < min_length) continue;
+        // goodness of the whole run
+        int64_t gsum = 0;
+        for (int64_t x = r0; x < r1; ++x) gsum += goodc[x];
+        int64_t L = r1 - r0;
+        int64_t m = min_end < L ? min_end : L;
+        bool ends_ok = true;  // m<=0: no ends requirement
+        for (int64_t x = 0; x < m; ++x)
+            if (!goodc[r0 + x] || !goodc[r1 - 1 - x]) { ends_ok = false; break; }
+        int64_t a0 = r0, a1 = r1;
+        bool ok = ends_ok && gsum * ident_den >= ident_num * L;
+        if (!ok) {
+            GoodSliceResult gs = best_good_slice(
+                goodc + r0, L, min_end, min_length, ident_num, ident_den);
+            if (!gs.ok) continue;
+            a0 = r0 + gs.c0;
+            a1 = r0 + gs.c1;
+        }
+        // accept slice [a0, a1)
+        if (!out.room(F)) return false;
+        for (int64_t i = fa; i < fb; ++i) {
+            int64_t st, ln = a1 - a0;
+            if (f_ori[i] == 1) st = f_start[i] + a0;
+            else st = f_start[i] + f_len[i] - a1;
+            out.frag(f_seq[i], st, ln, f_ori[i], i - fa);
+            memset(occ + seq_offsets[f_seq[i]] + st, 1, (size_t)ln);
+        }
+        out.close(ci, a0, a1, a0 == 0 && a1 == n_cols);
+    }
+    return true;
+}
+
+// A gapped or wrapping candidate (aln: its [F, n] codes, or null for a
+// gapless one). Returns false on output overflow.
+__attribute__((noinline)) bool admit_general(
+    const unsigned char* codes, const int64_t* seq_offsets, unsigned char* occ,
+    const int64_t* f_seq, const int64_t* f_start, const int64_t* f_len,
+    const int64_t* f_ori, const unsigned char* aln, int64_t ci, int64_t fa,
+    int64_t fb, int64_t n,
+    int64_t min_length, int64_t min_end, int64_t ident_num, int64_t ident_den,
+    Scratch& sc, Pieces& out) {
+    int64_t F = fb - fa;
+    auto seq_len = [&](int64_t i) {
+        return seq_offsets[f_seq[i] + 1] - seq_offsets[f_seq[i]];
+    };
+    // reject a candidate whose own fragments overlap, wrap spans included:
+    // the (seq, a0, a1) spans in order, each against the next
+    sc.spans.clear();
+    for (int64_t i = fa; i < fb; ++i) {
+        int64_t L = seq_len(i), st = f_start[i], end = st + f_len[i];
+        if (end <= L) {
+            sc.spans.push_back({f_seq[i], st, end});
+        } else {
+            sc.spans.push_back({f_seq[i], st, L});
+            sc.spans.push_back({f_seq[i], 0, end - L});
+        }
+    }
+    std::sort(sc.spans.begin(), sc.spans.end(), [](const Span& x, const Span& y) {
+        if (x.seq != y.seq) return x.seq < y.seq;
+        if (x.a0 != y.a0) return x.a0 < y.a0;
+        return x.a1 < y.a1;
+    });
+    for (size_t k = 0; k + 1 < sc.spans.size(); ++k)
+        if (sc.spans[k].seq == sc.spans[k + 1].seq &&
+            sc.spans[k + 1].a0 < sc.spans[k].a1)
+            return true;
+    const int64_t w = n + 1;
+    sc.cols(n);
+    if ((int64_t)sc.cum.size() < F * w) sc.cum.resize(2 * F * w);
+    if ((int64_t)sc.keep.size() < F) sc.keep.resize(2 * F);
+    unsigned char* freec = sc.freec.data();
+    unsigned char* goodc = sc.goodc.data();
+    unsigned char* mnc = sc.mnc.data();
+    unsigned char* mxc = sc.mxc.data();
+    unsigned char* keep = sc.keep.data();
+    int32_t* cum = sc.cum.data();
+    if (!aln) {
+        // a gapless wrapping candidate: its rows are its fragments' texts
+        if ((int64_t)sc.rows.size() < F * n) sc.rows.resize(2 * F * n);
+        unsigned char* rows = sc.rows.data();
+        for (int64_t r = 0; r < F; ++r) {
+            int64_t i = fa + r, L = seq_len(i), st = f_start[i];
+            const unsigned char* cd = codes + seq_offsets[f_seq[i]];
+            for (int64_t c = 0; c < n; ++c) {
+                int64_t p = (f_ori[i] == 1 ? st + c : st + f_len[i] - 1 - c) % L;
+                if (p < 0) p += L;
+                unsigned char ch = cd[p];
+                if (f_ori[i] != 1 && ch < 4) ch = (unsigned char)(3 - ch);
+                rows[r * n + c] = ch;
+            }
+        }
+        aln = rows;
+    }
+    // free mask, and each row's count of non-gap cells before each column
+    memset(freec, 1, (size_t)n);
+    for (int64_t r = 0; r < F; ++r) {
+        int64_t i = fa + r, L = seq_len(i), st = f_start[i];
+        const unsigned char* oc = occ + seq_offsets[f_seq[i]];
+        const unsigned char* row = aln + r * n;
+        int32_t* cr = cum + r * w;
+        int64_t k = 0;
+        cr[0] = 0;
+        for (int64_t c = 0; c < n; ++c) {
+            if (row[c] != kGap) {
+                int64_t p = (f_ori[i] == 1 ? st + k : st + f_len[i] - 1 - k) % L;
+                if (p < 0) p += L;
+                if (oc[p]) freec[c] = 0;
+                ++k;
+            }
+            cr[c + 1] = (int32_t)k;
+        }
+    }
+    int64_t c = 0;
+    while (c < n) {
+        if (!freec[c]) { ++c; continue; }
+        int64_t r0 = c;
+        while (c < n && freec[c]) ++c;
+        int64_t r1 = c;
+        if (r1 - r0 < min_length) continue;
+        // the piece's rows: all of them for the whole candidate, else those
+        // with a base in the run (a run with none makes no block)
+        bool whole = r0 == 0 && r1 == n;
+        int64_t S = 0;
+        for (int64_t r = 0; r < F; ++r) {
+            keep[r] = whole || cum[r * w + r1] > cum[r * w + r0];
+            S += keep[r];
+        }
+        if (!S) continue;
+        int64_t a0 = r0, a1 = r1;
+        bool ok = true;  // a piece of one row is exempt
+        if (S >= 2) {
             int64_t L = r1 - r0;
-            int64_t m = min_end < L ? min_end : L;
-            bool ends_ok = true;  // m<=0: no ends requirement (python parity)
-            for (int64_t x = 0; x < m; ++x)
-                if (!goodc[r0 + x] || !goodc[r1 - 1 - x]) { ends_ok = false; break; }
-            int64_t a0 = r0, a1 = r1;
-            bool ok = ends_ok && gsum * ident_den >= ident_num * L;
+            memset(mnc + r0, 255, (size_t)L);
+            memset(mxc + r0, 0, (size_t)L);
+            for (int64_t r = 0; r < F; ++r) {
+                if (!keep[r]) continue;
+                const unsigned char* row = aln + r * n;
+                for (int64_t x = r0; x < r1; ++x) {
+                    unsigned char ch = row[x];
+                    if (ch < mnc[x]) mnc[x] = ch;
+                    if (ch > mxc[x]) mxc[x] = ch;
+                }
+            }
+            // identical and gapless: every row holds the same real base
+            int64_t gsum = 0;
+            for (int64_t x = r0; x < r1; ++x) {
+                goodc[x] = (mnc[x] == mxc[x] && mxc[x] < 4) ? 1 : 0;
+                gsum += goodc[x];
+            }
+            ok = ends_good(goodc + r0, L, min_end) &&
+                 gsum * ident_den >= ident_num * L;
             if (!ok) {
                 GoodSliceResult gs = best_good_slice(
                     goodc + r0, L, min_end, min_length, ident_num, ident_den);
                 if (!gs.ok) continue;
+                // a good column has a base in every kept row, so the
+                // slice keeps them all
                 a0 = r0 + gs.c0;
                 a1 = r0 + gs.c1;
             }
-            // accept slice [a0, a1)
-            if (nb >= max_out_blocks || nf + F > max_out_frags) {
-                delete[] freec; delete[] goodc; delete[] mnc; delete[] mxc;
-                return -1;
-            }
-            for (int64_t i = fa; i < fb; ++i) {
-                int64_t st, ln = a1 - a0;
-                if (f_ori[i] == 1) st = f_start[i] + a0;
-                else st = (int64_t)f_start[i] + f_len[i] - a1;
-                o_seq[nf] = f_seq[i];
-                o_start[nf] = (int32_t)st;
-                o_len[nf] = (int32_t)ln;
-                o_ori[nf] = f_ori[i];
-                int64_t base = seq_offsets[f_seq[i]] + st;
-                memset(occ + base, 1, (size_t)ln);
-                ++nf;
-            }
-            o_src[nb] = ci;
-            ++nb;
-            out_offsets[nb] = nf;
         }
+        if (!out.room(S)) return false;
+        bool as_is = whole && ok;
+        for (int64_t r = 0; r < F; ++r) {
+            if (!keep[r]) continue;
+            int64_t i = fa + r, L = seq_len(i);
+            int64_t st = f_start[i], ln = f_len[i];
+            if (!as_is) {
+                int64_t t0 = cum[r * w + a0], t1 = cum[r * w + a1];
+                st = f_ori[i] == 1 ? st + t0 : st + ln - t1;
+                ln = t1 - t0;
+            }
+            if (st >= L) st -= L;  // blocks.normalize_wrap_starts
+            out.frag(f_seq[i], st, ln, f_ori[i], r);
+            mark_span(occ + seq_offsets[f_seq[i]], L, st, ln);
+        }
+        out.close(ci, a0, a1, as_is);
     }
-    delete[] freec; delete[] goodc; delete[] mnc; delete[] mxc;
-    return nb;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Admits candidates order[0..n_cand) in that order. Candidate ci has the
+// fragments [cand_offsets[ci], cand_offsets[ci+1]), n_cols[ci] columns and,
+// where aln_ptrs[ci] is not 0, the address of its C-contiguous uint8
+// alignment [F, n_cols]. Writes the admitted pieces (see Pieces) and
+// returns their number, or -1 where the outputs would overflow.
+int64_t npge_resolve_overlaps(
+    const unsigned char* codes, const int64_t* seq_offsets,
+    unsigned char* occ,  // [total_len] concatenated per-seq occupancy
+    const int64_t* cand_offsets, const int64_t* f_seq, const int64_t* f_start,
+    const int64_t* f_len, const int64_t* f_ori, const int64_t* n_cols,
+    const uint64_t* aln_ptrs, const int64_t* order, int64_t n_cand,
+    int64_t min_length, int64_t min_end, int64_t ident_num, int64_t ident_den,
+    int64_t* out_offsets, int32_t* o_seq, int32_t* o_start, int32_t* o_len,
+    int32_t* o_ori, int32_t* o_row, int64_t* o_src, int64_t* o_c0,
+    int64_t* o_c1, unsigned char* o_whole,
+    int64_t max_out_blocks, int64_t max_out_frags) {
+    Pieces out{out_offsets, o_seq, o_start, o_len, o_ori, o_row,
+               o_src, o_c0, o_c1, o_whole, max_out_blocks, max_out_frags};
+    out_offsets[0] = 0;
+    Scratch sc;
+    for (int64_t oi = 0; oi < n_cand; ++oi) {
+        int64_t ci = order[oi];
+        int64_t fa = cand_offsets[ci], fb = cand_offsets[ci + 1];
+        int64_t n = n_cols[ci];
+        if (fb - fa < 2 || n < min_length) continue;
+        const unsigned char* aln = reinterpret_cast<const unsigned char*>(
+            static_cast<uintptr_t>(aln_ptrs[ci]));
+        bool inside = true;
+        for (int64_t i = fa; i < fb && inside; ++i)
+            inside = f_start[i] + f_len[i] <=
+                     seq_offsets[f_seq[i] + 1] - seq_offsets[f_seq[i]];
+        bool fits = (!aln && inside)
+            ? admit_gapless(codes, seq_offsets, occ, f_seq, f_start, f_len,
+                            f_ori, ci, fa, fb, n, min_length, min_end,
+                            ident_num, ident_den, sc, out)
+            : admit_general(codes, seq_offsets, occ, f_seq, f_start, f_len,
+                            f_ori, aln, ci, fa, fb, n, min_length, min_end,
+                            ident_num, ident_den, sc, out);
+        if (!fits) return -1;
+    }
+    return out.nb;
 }
 
 }  // extern "C"

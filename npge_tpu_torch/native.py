@@ -82,15 +82,17 @@ def _load():
         c_u8p, ctypes.c_int64, c_i32p, c_i32p, ctypes.c_int64,
     ]
     lib.npge_uncovered_runs.restype = ctypes.c_int64
-    lib.npge_resolve_gapless.argtypes = [
-        c_u8p, c_i64p, ctypes.c_int32, c_u8p,
-        c_i64p, c_i32p, c_i32p, c_i32p, c_i32p,
-        c_i64p, ctypes.c_int64,
+    c_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
+    lib.npge_resolve_overlaps.argtypes = [
+        c_u8p, c_i64p, c_u8p,
+        c_i64p, c_i64p, c_i64p, c_i64p, c_i64p, c_i64p,
+        c_u64p, c_i64p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-        c_i64p, c_i32p, c_i32p, c_i32p, c_i32p, c_i64p,
+        c_i64p, c_i32p, c_i32p, c_i32p, c_i32p, c_i32p,
+        c_i64p, c_i64p, c_i64p, c_u8p,
         ctypes.c_int64, ctypes.c_int64,
     ]
-    lib.npge_resolve_gapless.restype = ctypes.c_int64
+    lib.npge_resolve_overlaps.restype = ctypes.c_int64
     lib.npge_nw_align.argtypes = [
         c_u8p, ctypes.c_int64, c_u8p, ctypes.c_int64,
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
@@ -200,7 +202,7 @@ def nw_align(a: np.ndarray, b: np.ndarray, match: int, mismatch: int,
     return out_a[n + m - L :], out_b[n + m - L :]
 
 
-def resolve_gapless(
+def resolve_overlaps(
     codes: np.ndarray,
     seq_offsets: np.ndarray,
     occ_concat: np.ndarray,
@@ -209,61 +211,57 @@ def resolve_gapless(
     f_start: np.ndarray,
     f_len: np.ndarray,
     f_ori: np.ndarray,
+    n_cols: np.ndarray,
+    aln_ptrs: np.ndarray,
     order: np.ndarray,
     min_length: int,
     min_end: int,
     ident_num: int,
     ident_den: int,
+    max_blocks: int,
+    max_frags: int,
 ):
-    """C++ greedy admission of gapless candidates. Mutates occ_concat.
-    Returns (out_offsets, o_seq, o_start, o_len, o_ori, o_src) or None if
-    the native library is unavailable; o_src[k] is the input candidate
-    index the k-th output block was sliced from (lets the caller reuse the
-    input Block object when a candidate was admitted whole)."""
+    """C++ greedy admission of candidates ``order``, gapless or gapped,
+    wrapping or not, in one pass. Candidate ci has the fragment rows
+    ``cand_offsets[ci]:cand_offsets[ci+1]`` (int64 columns), ``n_cols[ci]``
+    columns, and ``aln_ptrs[ci]``, the address of its C-contiguous uint8
+    alignment, or 0 where it is gapless; the caller keeps those arrays
+    alive. Mutates occ_concat. The outputs hold ``max_blocks`` pieces and
+    ``max_frags`` fragment rows, which the caller proves enough. Returns
+    (out_offsets, o_seq, o_start, o_len, o_ori, o_row, o_src, o_c0, o_c1,
+    o_whole), or None if the native library is unavailable: the pieces'
+    fragment rows in CSR, each with its row in the source candidate, and
+    for piece k its source candidate o_src[k], its columns
+    [o_c0[k], o_c1[k]) and o_whole[k], set where the candidate was
+    admitted as it is."""
     lib = _load()
     if not lib:
         return None
-    n_cand = len(order)
-    max_blocks = max(1024, 4 * n_cand)
-    max_frags = max(4096, int(cand_offsets[-1]) * 4)
-    while True:
-        out_off = np.zeros(max_blocks + 1, np.int64)
-        o_seq = np.empty(max_frags, np.int32)
-        o_start = np.empty(max_frags, np.int32)
-        o_len = np.empty(max_frags, np.int32)
-        o_ori = np.empty(max_frags, np.int32)
-        o_src = np.zeros(max_blocks, np.int64)
-        occ_save = occ_concat.copy()
-        nb = lib.npge_resolve_gapless(
-            np.ascontiguousarray(codes, np.uint8),
-            np.ascontiguousarray(seq_offsets, np.int64),
-            len(seq_offsets) - 1,
-            occ_concat,
-            np.ascontiguousarray(cand_offsets, np.int64),
-            np.ascontiguousarray(f_seq, np.int32),
-            np.ascontiguousarray(f_start, np.int32),
-            np.ascontiguousarray(f_len, np.int32),
-            np.ascontiguousarray(f_ori, np.int32),
-            np.ascontiguousarray(order, np.int64),
-            n_cand,
-            min_length, min_end, ident_num, ident_den,
-            out_off, o_seq, o_start, o_len, o_ori, o_src,
-            max_blocks, max_frags,
-        )
-        if nb >= 0:
-            nf = int(out_off[nb])
-            return (
-                out_off[: nb + 1].copy(),
-                o_seq[:nf].copy(),
-                o_start[:nf].copy(),
-                o_len[:nf].copy(),
-                o_ori[:nf].copy(),
-                o_src[:nb].copy(),
-            )
-        # overflow: restore occupancy and retry with bigger buffers
-        occ_concat[:] = occ_save
-        max_blocks *= 4
-        max_frags *= 4
+    def i64(a):
+        return np.ascontiguousarray(a, np.int64)
+
+    out_off = np.zeros(max_blocks + 1, np.int64)
+    o_src, o_c0, o_c1 = (np.empty(max_blocks, np.int64) for _ in range(3))
+    o_whole = np.empty(max_blocks, np.uint8)
+    o_seq, o_start, o_len, o_ori, o_row = (
+        np.empty(max_frags, np.int32) for _ in range(5)
+    )
+    nb = lib.npge_resolve_overlaps(
+        np.ascontiguousarray(codes, np.uint8), i64(seq_offsets), occ_concat,
+        i64(cand_offsets), i64(f_seq), i64(f_start), i64(f_len), i64(f_ori),
+        i64(n_cols), np.ascontiguousarray(aln_ptrs, np.uint64), i64(order),
+        len(order), min_length, min_end, ident_num, ident_den,
+        out_off, o_seq, o_start, o_len, o_ori, o_row,
+        o_src, o_c0, o_c1, o_whole, max_blocks, max_frags,
+    )
+    if nb < 0:
+        raise RuntimeError("npge_resolve_overlaps: output bound exceeded")
+    nf = int(out_off[nb])
+    return (
+        out_off[: nb + 1].copy(),
+        *(a[:nf].copy() for a in (o_seq, o_start, o_len, o_ori, o_row)),
+        *(a[:nb].copy() for a in (o_src, o_c0, o_c1, o_whole)),
+    )
 
 
 def uncovered_runs(occ: np.ndarray):
