@@ -137,7 +137,7 @@ def smi_line() -> str:
 def phase_env() -> None:
     import torch
 
-    from npge_tpu_torch import have_native, native
+    from npge_tpu_torch import native
     from npge_tpu_torch.ops._build import _nvcc
 
     print(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
@@ -148,8 +148,10 @@ def phase_env() -> None:
     print(f"[env] jax importable: "
           f"{str(importlib.util.find_spec('jax') is not None).lower()}",
           flush=True)
-    if not have_native():
-        fail(f"the port's host library {native.library_path()} did not build")
+    try:
+        native.load_library()
+    except RuntimeError as e:
+        fail(f"the port's host library did not build: {e}")
     print(f"[env] host library: {native.library_path()}", flush=True)
 
 
@@ -267,14 +269,14 @@ def build_parent_kernel(src: str):
     import torch
 
     from npge_tpu_torch.ops import _build
+    from npge_tpu_torch.util import shlib
 
-    out = _build._BUILD_DIR / "ab" / "libsw_parent.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        fail(f"nvcc failed on {src}:\n{res.stderr}")
-    for line in (res.stdout + res.stderr).splitlines():
+    out = shlib.BUILD_DIR / "ab" / "libsw_parent.so"
+    try:
+        log = shlib.build(_build._nvcc(), _build.NVCC_FLAGS, [src], out)
+    except RuntimeError as e:
+        fail(f"nvcc failed on {src}:\n{e}")
+    for line in log.splitlines():
         if "registers" in line or "spill" in line:
             print(f"[ab] parent {line.strip()}", flush=True)
     lib = ctypes.CDLL(str(out))

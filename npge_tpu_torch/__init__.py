@@ -12,7 +12,9 @@ the port as numpy arrays and text.
   - ``ops``     device compute: k-mer scan (``kmers``), gapless lockstep
                 extension (``extend``), banded-SW x-drop (``sw``, a CUDA
                 kernel for sm_90a, built at first use by ``_build``), 2-bit
-                packing (``pack``)
+                packing (``pack``); both native libraries, the C++ host
+                library and the CUDA kernels, are required and built by
+                ``util.shlib``
   - ``parallel`` a device mesh in one process (``mesh``, ``sharded``) and
                 a build split across a ``torch.distributed`` group of
                 processes (``distributed``, gloo gathers)
@@ -30,7 +32,6 @@ from npge_tpu_torch.io.checkpoint import save_stage  # noqa: E402,F401
 from npge_tpu_torch.model.arena import GenomeArena  # noqa: E402,F401
 from npge_tpu_torch.model.blocks import BlockSet  # noqa: E402,F401
 from npge_tpu_torch.model.hashing import blockset_hash  # noqa: E402,F401
-from npge_tpu_torch.native import have_native  # noqa: E402,F401
 from npge_tpu_torch.util.synthetic import synthetic_arena  # noqa: E402,F401
 from npge_tpu_torch.algo.is_pangenome import check_is_pangenome  # noqa: E402,F401
 from npge_tpu_torch.algo.pangenome import build_pangenome  # noqa: E402,F401

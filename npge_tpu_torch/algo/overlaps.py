@@ -24,11 +24,8 @@ import numpy as np
 from npge_tpu_torch.config import Config
 from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.model.blocks import Block, normalize_wrap_starts
-from npge_tpu_torch.model.fragments import FragmentTable, frag_spans
-from npge_tpu_torch.model.stats import column_classes, is_good_block
+from npge_tpu_torch.model.fragments import FragmentTable
 from npge_tpu_torch.trace import span
-from npge_tpu_torch.util import codes as C
-from npge_tpu_torch.algo.filter import best_good_slice
 
 
 def _block_score_key(b: Block, arena: GenomeArena):
@@ -149,105 +146,6 @@ def _admission_order_and_wraps(fc: "_FlatCandidates", arena: GenomeArena):
     return order, wraps
 
 
-def _col_positions(frag_row, n_cols: int, aln_row=None) -> np.ndarray:
-    """Sequence position of each alignment column for one fragment;
-    -1 where the row holds a gap."""
-    s, st, ln, o = frag_row
-    if aln_row is None:
-        if o == 1:
-            return np.arange(st, st + n_cols)
-        return np.arange(st + ln - 1, st + ln - 1 - n_cols, -1)
-    nongap = aln_row != C.GAP
-    k = np.cumsum(nongap) - 1  # non-gap ordinal per column
-    pos = np.where(o == 1, st + k, st + ln - 1 - k)
-    return np.where(nongap, pos, -1)
-
-
-def _runs(mask: np.ndarray):
-    """Maximal runs of True -> list of (c0, c1)."""
-    if not mask.any():
-        return []
-    d = np.diff(mask.astype(np.int8))
-    starts = np.flatnonzero(d == 1) + 1
-    ends = np.flatnonzero(d == -1) + 1
-    if mask[0]:
-        starts = np.concatenate([[0], starts])
-    if mask[-1]:
-        ends = np.concatenate([ends, [len(mask)]])
-    return list(zip(starts.tolist(), ends.tolist()))
-
-
-def _admit_python(
-    b: Block, arena, cfg: Config, occ: list[np.ndarray], accepted: list[Block],
-    buf: np.ndarray | None = None,
-) -> None:
-    """Admit one candidate against per-sequence occupancy (uint8 views).
-    Wrap-fragment aware: positions index occupancy modulo the sequence
-    length (model/fragments.frag_spans convention). A caller that made
-    ``occ`` as the views ``buf[offsets[s]:offsets[s+1]]`` of one arena
-    buffer passes ``buf`` for one global gather; else each sequence's
-    array is read on its own."""
-    # reject candidates whose own fragments overlap each other (can arise
-    # from consensus re-seed mapping): they could never satisfy the
-    # partition invariant. Wrap fragments contribute both spans.
-    ivs = sorted(
-        (int(b.frags.seq_id[fi]), a0, a1)
-        for fi in range(b.n_frags)
-        for a0, a1 in frag_spans(
-            int(b.frags.start[fi]), int(b.frags.length[fi]),
-            arena.seq_len(int(b.frags.seq_id[fi])),
-        )
-    )
-    if any(a[0] == c[0] and c[1] < a[2] for a, c in zip(ivs, ivs[1:])):
-        return
-    n = b.n_cols
-    f = b.frags
-    st = f.start.astype(np.int64)[:, None]
-    ln = f.length.astype(np.int64)[:, None]
-    ori = f.ori.astype(np.int64)[:, None]
-    seqs = f.seq_id.astype(np.int64)
-    Ls = (arena.offsets[seqs + 1] - arena.offsets[seqs])[:, None]
-    # per-column sequence positions for ALL fragments at once (the
-    # per-fragment _col_positions loop was a top resolve cost at scale)
-    if b.alignment is None:
-        kk = np.broadcast_to(np.arange(n), (b.n_frags, n))
-        has = np.ones((b.n_frags, n), dtype=bool)
-    else:
-        has = b.alignment != C.GAP
-        kk = np.cumsum(has, axis=1) - 1
-    pos = np.where(ori == 1, st + kk, st + ln - 1 - kk)
-    if buf is None:  # no arena buffer vouched for: per-sequence gather
-        occupied = np.zeros((b.n_frags, n), dtype=bool)
-        for fi in range(b.n_frags):
-            occupied[fi, has[fi]] = (
-                occ[int(seqs[fi])][pos[fi, has[fi]] % int(Ls[fi, 0])] != 0
-            )
-    else:
-        gpos = arena.offsets[seqs][:, None] + np.where(has, pos % Ls, 0)
-        occupied = (buf[gpos] != 0) & has
-    free = ~occupied.any(axis=0)
-    for c0, c1 in _runs(free):
-        if c1 - c0 < cfg.MIN_LENGTH:
-            continue
-        if c0 == 0 and c1 == n:
-            # whole candidate admitted -> keep the object identity (see
-            # the native-path comment in resolve_overlaps)
-            piece = normalize_wrap_starts(b, arena)
-        else:
-            piece = normalize_wrap_starts(b.slice(c0, c1), arena)
-        if not is_good_block(piece, arena, cfg):
-            ident, gapless = column_classes(piece.rows(arena))
-            sl = best_good_slice(ident & gapless, cfg)
-            if sl is None:
-                continue
-            piece = normalize_wrap_starts(piece.slice(*sl), arena)
-        accepted.append(piece)
-        for fi in range(piece.n_frags):
-            row = piece.frags.row(fi)
-            for a0, a1 in frag_spans(row[1], row[2], arena.seq_len(row[0])):
-                occ[row[0]][a0:a1] = 1
-
-
 def _output_bound(fc: "_FlatCandidates", order, fast, arena, cfg: Config):
     """(pieces, fragment rows) that admitting candidates ``order`` writes
     at most. A piece is a free run of at least m = max(MIN_LENGTH, 1)
@@ -263,8 +161,7 @@ def _output_bound(fc: "_FlatCandidates", order, fast, arena, cfg: Config):
 
 
 def resolve_overlaps(
-    cand, arena: GenomeArena, cfg: Config, use_native: bool = True,
-    timings=None,
+    cand, arena: GenomeArena, cfg: Config, timings=None,
 ) -> list[Block]:
     """Greedy admission of candidate blocks into an overlap-free, all-good
     set. Returns the admitted blocks; unclaimed positions are left for Rest.
@@ -275,14 +172,12 @@ def resolve_overlaps(
 
     Every eligible candidate, gapless or gapped, wrapping or not, is
     admitted in one global greedy order against one occupancy bitmap by
-    one C++ call (native.resolve_overlaps, exact same semantics); without
-    the native library the same order runs through ``_admit_python``, so
-    results are identical either way (parity-tested). ``timings`` receives
-    spans ``resolve.native`` (the call), ``resolve.blocks`` (its pieces
-    made into Blocks) and ``resolve.python`` (the no-library path), and
-    the eligible candidates by path, ``resolve.native_cands`` and
-    ``resolve.python_cands``, the gapped or wrapping ones among the
-    native, ``resolve.native_gapped_cands``, and ``resolve.native_calls``."""
+    one C++ call (native.resolve_overlaps, the reference's admission
+    semantics). ``timings`` receives spans
+    ``resolve.native`` (the call) and ``resolve.blocks`` (its pieces made
+    into Blocks), and the counters ``resolve.native_cands`` (the eligible
+    candidates), ``resolve.native_gapped_cands`` (the gapped or wrapping
+    ones among them) and ``resolve.native_calls``."""
     from npge_tpu_torch import native
 
     occ_concat = np.zeros(arena.total_length, np.uint8)
@@ -291,28 +186,11 @@ def resolve_overlaps(
     order = order[(fc.nfr[order] >= 2) & (fc.ncols[order] >= cfg.MIN_LENGTH)]
     # gapless candidates inside their sequences: the C++ streaming path
     fast = fc.gapless & ~wraps
-    native_ok = use_native and native.have_native()
     if timings is not None:
-        n_native = len(order) if native_ok else 0
-        timings.count("resolve.native_cands", n_native)
-        timings.count("resolve.python_cands", len(order) - n_native)
-        timings.count(
-            "resolve.native_gapped_cands",
-            int((~fast[order]).sum()) if native_ok else 0,
-        )
-        timings.count("resolve.native_calls", int(native_ok))
+        timings.count("resolve.native_cands", len(order))
+        timings.count("resolve.native_gapped_cands", int((~fast[order]).sum()))
+        timings.count("resolve.native_calls", 1)
     accepted: list[Block] = []
-    if not native_ok:
-        occ = [
-            occ_concat[arena.offsets[i] : arena.offsets[i + 1]]
-            for i in range(arena.n_seqs)
-        ]
-        with span(timings, "resolve.python"):
-            for ci in order.tolist():
-                _admit_python(
-                    fc.block(ci), arena, cfg, occ, accepted, occ_concat
-                )
-        return accepted
     # the gapped candidates' alignments by address; ``alns`` keeps them
     # alive through the call
     gapped = order[~fc.gapless[order]].tolist()
@@ -357,7 +235,7 @@ def resolve_overlaps(
 def occupancy(arena: GenomeArena, blocks: list[Block]):
     """Per-sequence position-covered masks, vectorized: one pass building
     global interval arrays (wrap fragments split into two spans) + one
-    native/NumPy interval-marking sweep — the per-fragment Python loop
+    native interval-marking sweep — the per-fragment Python loop
     cost ~8 s/round at the 100-genome scale (48k blocks)."""
     from npge_tpu_torch import native
 

@@ -112,54 +112,13 @@ def banded_nw_align(
 
 def nw_align(a: np.ndarray, b: np.ndarray, match=1, mismatch=-2, gap=-3):
     """Global alignment of two code arrays. Returns (row_a, row_b) uint8
-    arrays of equal length with GAP fills. The C++ path (native.nw_align,
-    bit-identical values and tie-breaks, parity-tested) serves the
-    thousands of short gap-patch alignments per build; NumPy below is the
-    no-toolchain fallback."""
+    arrays of equal length with GAP fills, computed by the C++ host library
+    (native.nw_align: the reference's NumPy values and traceback
+    tie-breaks, diag > up > left); it serves the thousands of short
+    gap-patch alignments per build."""
     from npge_tpu_torch import native
 
-    res = native.nw_align(a, b, match, mismatch, gap, C.GAP)
-    if res is not None:
-        return res
-    n, m = len(a), len(b)
-    H = np.zeros((n + 1, m + 1), np.int64)
-    H[:, 0] = np.arange(n + 1) * gap
-    H[0, :] = np.arange(m + 1) * gap
-    jj = np.arange(1, m + 1, dtype=np.int64)
-    for i in range(1, n + 1):
-        sub = np.where(a[i - 1] == b, match, mismatch)
-        row_prev = H[i - 1]
-        # A[j] = best of diag/up moves; the left-gap recurrence
-        # H[i,j] = max(A[j], H[i,j-1]+gap) unrolls to a prefix max:
-        # H[i,j] = j*gap + max_{k<=j} (A'[k] - k*gap), A'[0] = H[i,0]
-        A = np.maximum(row_prev[:-1] + sub, row_prev[1:] + gap)
-        B = np.empty(m + 1, np.int64)
-        B[0] = H[i, 0]
-        B[1:] = A - jj * gap
-        H[i, 1:] = jj * gap + np.maximum.accumulate(B)[1:]
-    # traceback (diag > up > left)
-    ra, rb = [], []
-    i, j = n, m
-    while i > 0 or j > 0:
-        if i > 0 and j > 0 and H[i, j] == H[i - 1, j - 1] + (
-            match if a[i - 1] == b[j - 1] else mismatch
-        ):
-            ra.append(a[i - 1])
-            rb.append(b[j - 1])
-            i -= 1
-            j -= 1
-        elif i > 0 and H[i, j] == H[i - 1, j] + gap:
-            ra.append(a[i - 1])
-            rb.append(C.GAP)
-            i -= 1
-        else:
-            ra.append(C.GAP)
-            rb.append(b[j - 1])
-            j -= 1
-    return (
-        np.array(ra[::-1], np.uint8),
-        np.array(rb[::-1], np.uint8),
-    )
+    return native.nw_align(a, b, match, mismatch, gap, C.GAP)
 
 
 def _merge_into(profile_rows: list[np.ndarray], seg: np.ndarray,

@@ -355,10 +355,8 @@ def cmd_warmup(args) -> None:
     from npge_tpu_torch.util.synthetic import synthetic_arena
 
     dev = _device(args)
-    host = (
-        f"host library {native.library_path()}" if native.have_native()
-        else "host library did not build (NumPy fallbacks)"
-    )
+    native.load_library()
+    host = f"host library {native.library_path()}"
     lib = "no kernel library on the CPU (plain torch versions)"
     if dev.type == "cuda":
         from npge_tpu_torch.ops import _build

@@ -4,8 +4,9 @@
 // The reference (NPGe) is an all-C++ program; its TPU-native successor keeps
 // the *compute* path in JAX/XLA/Pallas and reimplements the host-side hot
 // paths natively here (SURVEY.md §2.6): FASTA ingest + base encoding
-// (Sequence readers ⚠[B]), 2-bit packed storage (CompactSequence ⚠[B]), and
-// the occupancy/interval primitives backing Rest/OverlapsResolver ⚠[B].
+// (Sequence readers ⚠[B]), the occupancy/interval primitives backing
+// Rest/OverlapsResolver ⚠[B], overlap resolution and short global
+// alignments.
 //
 // C ABI only (consumed via ctypes — no pybind11 in this image). All buffers
 // are caller-allocated numpy arrays; functions return element counts or
@@ -35,13 +36,6 @@ const CodeTable kCodes;
 }  // namespace
 
 extern "C" {
-
-// Translate raw bytes to base codes. out must hold n bytes.
-void npge_encode_bytes(const char* s, int64_t n, unsigned char* out) {
-    for (int64_t i = 0; i < n; ++i) {
-        out[i] = kCodes.t[(unsigned char)s[i]];
-    }
-}
 
 // One-pass FASTA parser.
 //   data/n:        raw file bytes
@@ -84,29 +78,6 @@ int64_t npge_fasta_encode(const char* data, int64_t n,
     return nseq;
 }
 
-// 2-bit pack: 16 bases per uint32 (base i at bits 2*(i%16)), N positions
-// packed as A with nmask bit set (nmask: 1 byte per base, could be bitset
-// later). packed must hold ceil(n/16) words.
-void npge_pack2(const unsigned char* codes, int64_t n, uint32_t* packed,
-                unsigned char* nmask) {
-    int64_t words = (n + 15) / 16;
-    for (int64_t wi = 0; wi < words; ++wi) packed[wi] = 0;
-    for (int64_t i = 0; i < n; ++i) {
-        unsigned char c = codes[i];
-        unsigned char b = c < 4 ? c : 0;
-        nmask[i] = c >= 4 ? 1 : 0;
-        packed[i / 16] |= (uint32_t)b << (2 * (i % 16));
-    }
-}
-
-void npge_unpack2(const uint32_t* packed, const unsigned char* nmask,
-                  int64_t n, unsigned char* out) {
-    for (int64_t i = 0; i < n; ++i) {
-        unsigned char b = (packed[i / 16] >> (2 * (i % 16))) & 3;
-        out[i] = nmask[i] ? 4 : b;
-    }
-}
-
 // Occupancy: set occ[start[k] .. start[k]+len[k]) for every interval.
 void npge_mark_intervals(unsigned char* occ, int64_t occ_len,
                          const int32_t* start, const int32_t* len,
@@ -143,35 +114,14 @@ int64_t npge_uncovered_runs(const unsigned char* occ, int64_t n,
     return cnt;
 }
 
-// Free-mask for one candidate block: free_cols[c] = 1 iff no present
-// fragment occupies an occupied position at column c. Gapless fast path:
-// fragments described by (seq_occ pointer chosen by caller per fragment).
-// Here: one fragment at a time; caller ANDs across fragments.
-//   ori=+1: position of column c = start + c
-//   ori=-1: position of column c = start + len - 1 - c
-void npge_free_mask_and(const unsigned char* occ, int64_t occ_len,
-                        int32_t start, int32_t len, int32_t ori,
-                        int64_t n_cols, unsigned char* free_cols) {
-    if (ori == 1) {
-        for (int64_t c = 0; c < n_cols; ++c) {
-            int64_t p = start + c;
-            if (p >= 0 && p < occ_len && occ[p]) free_cols[c] = 0;
-        }
-    } else {
-        for (int64_t c = 0; c < n_cols; ++c) {
-            int64_t p = (int64_t)start + len - 1 - c;
-            if (p >= 0 && p < occ_len && occ[p]) free_cols[c] = 0;
-        }
-    }
-}
-
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
 // Greedy overlap resolution — the host hot loop of the pipeline
 // (algo/overlaps.py resolve_overlaps). One call admits every eligible
 // candidate, in the global admission order, against one occupancy buffer,
-// with the exact semantics of overlaps._admit_python (parity-tested).
+// with the exact semantics of the reference's
+// npge_tpu/algo/overlaps.py:_admit_python (tested against it).
 // Admission slices each candidate to its free column runs, re-checks the
 // good-block predicate (identity as exact integer rational; identical
 // first/last min_end columns), extracts the longest good slice when a run

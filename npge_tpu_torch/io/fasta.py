@@ -3,18 +3,18 @@
 
 Host-side I/O layer (the reference reads FASTA via its Sequence readers and a
 ``genomes.tsv`` table ``<accession> <genome>&<chr>&<c|l>`` [B], SURVEY.md
-§2.5). A C++ fast-path packer may replace the inner loop later; the numpy
-byte-table translation below is already vectorized.
+§2.5). FASTA text is parsed and encoded in one pass by the C++ host
+library (``native.fasta_encode``).
 """
 
 from __future__ import annotations
 
 import gzip
-import io
 import os
 
 import numpy as np
 
+from npge_tpu_torch import native
 from npge_tpu_torch.model.arena import GenomeArena
 from npge_tpu_torch.util import codes as C
 
@@ -26,8 +26,8 @@ def _open(path: str):
 
 
 def read_fasta(path_or_file) -> list[tuple[str, np.ndarray]]:
-    """Read FASTA -> [(header_first_word, codes uint8)]. Uses the C++
-    single-pass parser (npge_tpu.native) when available."""
+    """Read FASTA -> [(header_first_word, codes uint8)], parsed by the C++
+    host library in one pass."""
     close = False
     if isinstance(path_or_file, (str, os.PathLike)):
         fh = _open(str(path_or_file))
@@ -41,29 +41,11 @@ def read_fasta(path_or_file) -> list[tuple[str, np.ndarray]]:
     finally:
         if close:
             fh.close()
-    from npge_tpu_torch import native
-
-    res = native.fasta_encode(data)
-    if res is not None:
-        headers, codes, offsets = res
-        return [
-            (headers[i], codes[offsets[i] : offsets[i + 1]])
-            for i in range(len(headers))
-        ]
-    out: list[tuple[str, np.ndarray]] = []
-    name = None
-    chunks: list[bytes] = []
-    for line in data.splitlines():
-        if line.startswith(b">"):
-            if name is not None:
-                out.append((name, C.encode(b"".join(chunks))))
-            name = line[1:].split()[0].decode() if len(line) > 1 else ""
-            chunks = []
-        elif line:
-            chunks.append(line.strip())
-    if name is not None:
-        out.append((name, C.encode(b"".join(chunks))))
-    return out
+    headers, codes, offsets = native.fasta_encode(data)
+    return [
+        (headers[i], codes[offsets[i] : offsets[i + 1]])
+        for i in range(len(headers))
+    ]
 
 
 def write_fasta(fh, records, width: int = 60) -> None:

@@ -1,80 +1,49 @@
 # mirrors npge_tpu/native.py
 """ctypes bindings for the C++ host-runtime kernels (csrc/npge_native.cpp).
 
-The port's own copy of the reference's host library. It is built with g++
-at first use into ``build/npge_tpu_torch/`` at the root of the checkout,
-named by a hash of the source and flags, so the two packages never share a
-build product. Every entry point has a NumPy fallback so the package works
-without a toolchain; ``have_native()`` reports which path is active and
-tests assert parity between the two.
+The port's own copy of the reference's host library, which the port
+requires. It is built with g++ (or ``CXX``) at first use into
+``build/npge_tpu_torch/`` at the root of the checkout through
+``util.shlib``, named by a hash of the source and flags, so the two packages
+never share a build product; a failed build raises with g++'s output.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent
-_SRC = _PKG / "csrc" / "npge_native.cpp"
-_BUILD_DIR = _PKG.parent / "build" / "npge_tpu_torch"
+from npge_tpu_torch.util import shlib
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "npge_native.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-shared")
 _lib = None
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    h.update(_SRC.read_bytes())
-    return _BUILD_DIR / f"libnpge_native_{h.hexdigest()[:16]}.so"
+    return shlib.library_path("libnpge_native", CXX_FLAGS, [_SRC.read_bytes()])
 
 
-def _build(out: Path) -> bool:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cxx = os.environ.get("CXX", "g++")
-    try:
-        subprocess.run(
-            [cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        os.replace(tmp, out)
-        return True
-    except Exception:
-        tmp.unlink(missing_ok=True)
-        return False
-
-
-def _load():
+def load_library() -> ctypes.CDLL:
+    """The host library, built on first call if missing."""
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists() and not _build(so):
-        _lib = False
-        return _lib
-    try:
-        lib = ctypes.CDLL(str(so))
-    except OSError:
-        _lib = False
-        return _lib
+    lib, _ = shlib.load(
+        library_path(), lambda: os.environ.get("CXX", "g++"), CXX_FLAGS, [_SRC]
+    )
     c_u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
     c_i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
     c_i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
-    c_u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
-    lib.npge_encode_bytes.argtypes = [ctypes.c_char_p, ctypes.c_int64, c_u8p]
+    c_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     lib.npge_fasta_encode.argtypes = [
         ctypes.c_char_p, ctypes.c_int64, c_u8p, c_i64p, c_i64p, c_i64p,
         ctypes.c_int64,
     ]
     lib.npge_fasta_encode.restype = ctypes.c_int64
-    lib.npge_pack2.argtypes = [c_u8p, ctypes.c_int64, c_u32p, c_u8p]
-    lib.npge_unpack2.argtypes = [c_u32p, c_u8p, ctypes.c_int64, c_u8p]
     lib.npge_mark_intervals.argtypes = [
         c_u8p, ctypes.c_int64, c_i32p, c_i32p, ctypes.c_int64,
     ]
@@ -82,7 +51,6 @@ def _load():
         c_u8p, ctypes.c_int64, c_i32p, c_i32p, ctypes.c_int64,
     ]
     lib.npge_uncovered_runs.restype = ctypes.c_int64
-    c_u64p = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
     lib.npge_resolve_overlaps.argtypes = [
         c_u8p, c_i64p, c_u8p,
         c_i64p, c_i64p, c_i64p, c_i64p, c_i64p, c_i64p,
@@ -103,27 +71,9 @@ def _load():
     return _lib
 
 
-def have_native() -> bool:
-    return bool(_load())
-
-
-def encode_bytes(data: bytes) -> np.ndarray:
-    lib = _load()
-    if lib:
-        out = np.empty(len(data), np.uint8)
-        lib.npge_encode_bytes(data, len(data), out)
-        return out
-    from npge_tpu_torch.util.codes import encode
-
-    return encode(data)
-
-
 def fasta_encode(data: bytes):
-    """Parse FASTA bytes natively. Returns (headers, codes, offsets) or None
-    if the native library is unavailable (caller falls back to Python)."""
-    lib = _load()
-    if not lib:
-        return None
+    """Parse FASTA bytes in one pass. Returns (headers, codes, offsets)."""
+    lib = load_library()
     n = len(data)
     max_seqs = max(16, data.count(b">") + 1)
     codes = np.empty(n, np.uint8)
@@ -131,67 +81,30 @@ def fasta_encode(data: bytes):
     hs = np.zeros(max_seqs, np.int64)
     he = np.zeros(max_seqs, np.int64)
     nseq = lib.npge_fasta_encode(data, n, codes, offsets, hs, he, max_seqs)
-    if nseq < 0:
-        return None
+    if nseq < 0:  # max_seqs counts every '>': cannot happen
+        raise RuntimeError("npge_fasta_encode: more records than '>' bytes")
     headers = [
         data[hs[i] : he[i]].decode("ascii", "replace") for i in range(nseq)
     ]
     return headers, codes[: offsets[nseq]].copy(), offsets[: nseq + 1].copy()
 
 
-def pack2(codes: np.ndarray):
-    """(packed uint32[ceil(n/16)], nmask uint8[n]) — CompactSequence parity."""
-    codes = np.ascontiguousarray(codes, np.uint8)
-    n = len(codes)
-    lib = _load()
-    packed = np.zeros((n + 15) // 16, np.uint32)
-    nmask = np.zeros(n, np.uint8)
-    if lib:
-        lib.npge_pack2(codes, n, packed, nmask)
-        return packed, nmask
-    nmask[:] = codes >= 4
-    vals = np.where(codes < 4, codes, 0).astype(np.uint32)
-    idx = np.arange(n)
-    np.bitwise_or.at(packed, idx // 16, vals << (2 * (idx % 16)).astype(np.uint32))
-    return packed, nmask
-
-
-def unpack2(packed: np.ndarray, nmask: np.ndarray, n: int) -> np.ndarray:
-    lib = _load()
-    out = np.empty(n, np.uint8)
-    if lib:
-        lib.npge_unpack2(
-            np.ascontiguousarray(packed, np.uint32),
-            np.ascontiguousarray(nmask, np.uint8), n, out,
-        )
-        return out
-    idx = np.arange(n)
-    vals = (packed[idx // 16] >> (2 * (idx % 16)).astype(np.uint32)) & 3
-    return np.where(nmask[:n] > 0, 4, vals).astype(np.uint8)
-
-
 def mark_intervals(occ: np.ndarray, start: np.ndarray, length: np.ndarray):
-    lib = _load()
-    if lib and len(start):
-        lib.npge_mark_intervals(
-            occ, len(occ),
-            np.ascontiguousarray(start, np.int32),
-            np.ascontiguousarray(length, np.int32),
-            len(start),
-        )
-        return
-    for s, ln in zip(start, length):
-        occ[s : s + ln] = 1
+    """Set ``occ[start[k] : start[k] + length[k]]`` for every k."""
+    load_library().npge_mark_intervals(
+        occ, len(occ),
+        np.ascontiguousarray(start, np.int32),
+        np.ascontiguousarray(length, np.int32),
+        len(start),
+    )
 
 
 def nw_align(a: np.ndarray, b: np.ndarray, match: int, mismatch: int,
              gap: int, gap_code: int):
-    """C++ global NW (linear gaps) — exact mirror of
-    algo.similar.nw_align's values and traceback tie-breaks. Returns
-    (row_a, row_b) uint8 arrays, or None if the library is unavailable."""
-    lib = _load()
-    if not lib:
-        return None
+    """C++ global NW (linear gaps) with the reference's NumPy
+    ``algo.similar.nw_align`` values and traceback tie-breaks. Returns
+    (row_a, row_b) uint8 arrays."""
+    lib = load_library()
     a = np.ascontiguousarray(a, np.uint8)
     b = np.ascontiguousarray(b, np.uint8)
     n, m = len(a), len(b)
@@ -229,14 +142,13 @@ def resolve_overlaps(
     alive. Mutates occ_concat. The outputs hold ``max_blocks`` pieces and
     ``max_frags`` fragment rows, which the caller proves enough. Returns
     (out_offsets, o_seq, o_start, o_len, o_ori, o_row, o_src, o_c0, o_c1,
-    o_whole), or None if the native library is unavailable: the pieces'
+    o_whole): the pieces'
     fragment rows in CSR, each with its row in the source candidate, and
     for piece k its source candidate o_src[k], its columns
     [o_c0[k], o_c1[k]) and o_whole[k], set where the candidate was
     admitted as it is."""
-    lib = _load()
-    if not lib:
-        return None
+    lib = load_library()
+
     def i64(a):
         return np.ascontiguousarray(a, np.int64)
 
@@ -266,22 +178,12 @@ def resolve_overlaps(
 
 def uncovered_runs(occ: np.ndarray):
     """(starts, ends) int32 arrays of maximal zero-runs."""
-    lib = _load()
-    if lib:
-        cap = 1024
-        while True:
-            starts = np.empty(cap, np.int32)
-            ends = np.empty(cap, np.int32)
-            cnt = lib.npge_uncovered_runs(occ, len(occ), starts, ends, cap)
-            if cnt >= 0:
-                return starts[:cnt].copy(), ends[:cnt].copy()
-            cap *= 4
-    x = occ == 0
-    d = np.diff(x.astype(np.int8))
-    starts = np.flatnonzero(d == 1) + 1
-    ends = np.flatnonzero(d == -1) + 1
-    if len(x) and x[0]:
-        starts = np.concatenate([[0], starts])
-    if len(x) and x[-1]:
-        ends = np.concatenate([ends, [len(x)]])
-    return starts.astype(np.int32), ends.astype(np.int32)
+    lib = load_library()
+    cap = 1024
+    while True:
+        starts = np.empty(cap, np.int32)
+        ends = np.empty(cap, np.int32)
+        cnt = lib.npge_uncovered_runs(occ, len(occ), starts, ends, cap)
+        if cnt >= 0:
+            return starts[:cnt].copy(), ends[:cnt].copy()
+        cap *= 4

@@ -1,24 +1,21 @@
 """Build and load the port's CUDA kernels at first use.
 
 The sources under ``npge_tpu_torch/csrc`` are compiled by ``nvcc`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The library
-lands in ``build/npge_tpu_torch/`` at the root of the checkout, named by a
-hash of the sources and flags, so a changed source rebuilds and an unchanged
-one loads the existing file. A failed build raises with nvcc's output.
+shared library with a plain C interface, loaded with ``ctypes`` through
+``util.shlib``, which names it by a hash of the sources and flags and raises
+with nvcc's output when the build fails.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
 from pathlib import Path
 
-_PKG = Path(__file__).resolve().parents[1]
-_SRC_DIR = _PKG / "csrc"
-_BUILD_DIR = _PKG.parent / "build" / "npge_tpu_torch"
+from npge_tpu_torch.util import shlib
+
+_SRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("sw_xdrop.cu",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,26 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    parts = []
     for name in SOURCES:
-        h.update(name.encode())
-        h.update((_SRC_DIR / name).read_bytes())
-    return _BUILD_DIR / f"libnpge_tpu_torch_{h.hexdigest()[:16]}.so"
-
-
-def _compile(out: Path) -> str:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)]
-    cmd += [str(_SRC_DIR / name) for name in SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
-    return res.stdout + res.stderr
+        parts += [name.encode(), (_SRC_DIR / name).read_bytes()]
+    return shlib.library_path("libnpge_tpu_torch", NVCC_FLAGS, parts)
 
 
 def load_library() -> ctypes.CDLL:
@@ -70,10 +51,9 @@ def load_library() -> ctypes.CDLL:
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    path = library_path()
-    if not path.exists():
-        BUILD_LOG = _compile(path)
-    lib = ctypes.CDLL(str(path))
+    lib, BUILD_LOG = shlib.load(
+        library_path(), _nvcc, NVCC_FLAGS, [_SRC_DIR / n for n in SOURCES]
+    )
     vp, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.npge_sw_xdrop.argtypes = [vp, ll, vp, vp, vp, vp, vp, vp] + [i32] * 9 + [vp]
     lib.npge_sw_xdrop.restype = i32

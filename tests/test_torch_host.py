@@ -104,7 +104,7 @@ def test_fragment_rooms_and_column_classes_equal(built):
 
 
 def test_host_library_builds_in_the_ports_build_dir():
-    assert native.have_native()
+    native.load_library()
     path = native.library_path()
     assert path.exists()
     assert path.parent == ROOT / "build" / "npge_tpu_torch"

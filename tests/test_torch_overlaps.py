@@ -1,18 +1,11 @@
 """npge_tpu_torch's overlap resolution against the JAX package's.
 
-``_admit_python`` on the same candidates and occupancy, whatever backs the
-port's occupancy: independent per-sequence arrays, views of one arena
-buffer with and without that buffer passed, and views laid out otherwise
-(a longer buffer at an offset, or the arena's length in another order),
-which must take the per-sequence gather. The reference reads independent
-per-sequence arrays. The candidates are a gapped block whose alignment
-holds the gap code and a gapless one.
-
-``resolve_overlaps``, its one C++ pass and its no-library Python path, on
-hand-made cases (gapped runs, dropped rows, one-row pieces, the good-slice
-fallback, self-overlap, wraps, mixed lists) and on re-seed rounds recorded
-from CPU builds: the same pieces in the same order, and whole admissions as
-the candidate objects themselves."""
+``resolve_overlaps``, its one C++ pass, on hand-made cases (gapped runs,
+a gap-code column, dropped rows, one-row pieces, the good-slice fallback,
+self-overlap, wraps, mixed lists) and on re-seed rounds recorded from CPU
+builds: the same pieces in the same order as the reference's
+``resolve_overlaps``, and whole admissions as the candidate objects
+themselves."""
 
 import numpy as np
 import pytest
@@ -24,70 +17,11 @@ from npge_tpu.model import fragments as ref_fragments
 from npge_tpu.model.arena import GenomeArena
 from npge_tpu.util import codes as ref_codes
 from npge_tpu.util.synthetic import synthetic_arena
-from npge_tpu_torch.algo.overlaps import _admit_python
 from npge_tpu_torch.model import blocks as port_blocks
 from npge_tpu_torch.model import fragments as port_fragments
-from npge_tpu_torch.util import codes as port_codes
 from torch_carry import port_arena, port_config
 
 CFG = default_config().replace(MIN_LENGTH=60, MIN_END=3)
-# occupied (seq, start, stop) spans, both on sequence 1: columns 100-160
-# of the gapped candidate, columns 151-201 of the gapless one
-OCCUPIED = [(1, 200, 260), (1, 650, 700)]
-ROWS = {
-    "gapped": [(0, 100, 300, 1), (1, 100, 299, 1), (2, 100, 300, 1)],
-    "gapless": [(0, 500, 300, 1), (1, 499, 300, 1), (2, 500, 300, 1)],
-}
-
-
-def _ref_arena():
-    """Three sequences: 0 and 2 equal, 1 with base 350 deleted."""
-    rng = np.random.default_rng(5)
-    s0 = rng.integers(0, 4, 1000).astype(np.uint8)
-    names = synthetic_arena(n_genomes=3, length=100, seed=1).names
-    return GenomeArena(names, [s0, np.delete(s0, 350), s0.copy()])
-
-
-def _candidates(arena, blocks, fragments, gap):
-    """A gapped candidate over [100, 400) whose row 1 holds a gap at
-    column 250, and a gapless one over [500, 800), in one package's
-    classes."""
-    s0, s1 = arena.seq_codes(0), arena.seq_codes(1)
-    row1 = np.insert(s1[100:399], 250, gap)
-    gapped = blocks.Block(
-        fragments.FragmentTable.from_rows(ROWS["gapped"]),
-        np.stack([s0[100:400], row1, s0[100:400]]),
-    )
-    gapless = blocks.Block(fragments.FragmentTable.from_rows(ROWS["gapless"]))
-    return [gapped, gapless]
-
-
-def _occupancy(arena, form: str):
-    """The occupancy of ``OCCUPIED`` in the given form, and the buffer
-    passed to ``_admit_python`` (None unless the form vouches for it)."""
-    off = arena.offsets
-    spans = [(int(off[s]), int(off[s + 1])) for s in range(arena.n_seqs)]
-    total = arena.total_length
-    buf = None
-    if form in ("aligned", "aligned_passed"):
-        whole = np.zeros(total, np.uint8)
-        occ = [whole[a:e] for a, e in spans]
-        if form == "aligned_passed":  # as resolve_overlaps does
-            buf = whole
-    elif form == "independent":
-        occ = [np.zeros(e - a, np.uint8) for a, e in spans]
-    elif form == "longer_at_offset":
-        whole = np.zeros(total + 81, np.uint8)[64 : 64 + total]
-        occ = [whole[a:e] for a, e in spans]
-    else:  # "rotated": the arena's length, the sequences in order 1, 2, 0
-        whole = np.zeros(total, np.uint8)
-        occ, at = [None] * arena.n_seqs, 0
-        for s in (1, 2, 0):
-            n = spans[s][1] - spans[s][0]
-            occ[s], at = whole[at : at + n], at + n
-    for s, a, e in OCCUPIED:
-        occ[s][a:e] = 1
-    return occ, buf
 
 
 def _pieces(accepted):
@@ -99,49 +33,9 @@ def _pieces(accepted):
     ]
 
 
-def _ref_admit():
-    """The reference's admitted pieces and final occupancy, on independent
-    per-sequence arrays."""
-    arena = _ref_arena()
-    cands = _candidates(arena, ref_blocks, ref_fragments, ref_codes.GAP)
-    occ, _ = _occupancy(arena, "independent")
-    accepted = []
-    for b in cands:
-        ref_overlaps._admit_python(b, arena, CFG, occ, accepted)
-    return _pieces(accepted), occ
-
-
-def _port_admit(form: str):
-    arena = port_arena(_ref_arena())
-    cands = _candidates(arena, port_blocks, port_fragments, port_codes.GAP)
-    occ, buf = _occupancy(arena, form)
-    accepted = []
-    for b in cands:
-        _admit_python(b, arena, port_config(CFG), occ, accepted, buf)
-    return _pieces(accepted), occ
-
-
-@pytest.mark.parametrize(
-    "form",
-    ["independent", "aligned", "aligned_passed", "longer_at_offset", "rotated"],
-)
-def test_admit_matches_reference_whatever_backs_occupancy(form):
-    want, want_occ = _ref_admit()
-    # the free column runs: gapped [0, 100) and [160, 300) (the gap column
-    # 250 in the second), gapless [0, 151) and [201, 300)
-    assert [p[1][0] for p in want] == [100, 260, 500, 701]
-    assert [(np.frombuffer(p[4], np.uint8) == ref_codes.GAP).sum()
-            for p in want[:2]] == [0, 1]
-    got, got_occ = _port_admit(form)
-    assert got == want
-    for g, w in zip(got_occ, want_occ):
-        np.testing.assert_array_equal(g, w)
-
-
-# ---- resolve_overlaps: the native pass against the Python path and the
-# reference, case by case. Five copies of one random sequence: 1 lacks
-# base 1350 (linear world) or base 50 (circular world), 3 is the reverse
-# complement in the circular world.
+# ---- resolve_overlaps against the reference, case by case. Five copies
+# of one random sequence: 1 lacks base 1350 (linear world) or base 50
+# (circular world), 3 is the reverse complement in the circular world.
 
 def _world(circular: bool):
     rng = np.random.default_rng(14)
@@ -177,6 +71,17 @@ RESOLVE_CASES = {
         _gapless(*[(s, 1100, 60, 1) for s in (0, 2, 3, 4)]),
         _aligned(a, [(0, 1000, 600, 1), (1, 1000, 599, 1), (2, 1000, 600, 1)],
                  {1: [350]}),
+    ]),
+    # a gapped candidate whose row 1 holds the gap code at column 250 (the
+    # deleted base 1350) and a gapless one, both on rows 0-2, cut by 4-row
+    # blockers: the first on columns 100-160 of the gapped, the second on
+    # columns 151-211 of the gapless (row 1 starts one base early there)
+    "blocked_pair": (False, lambda a: [
+        _gapless(*[(s, 1200, 60, 1) for s in (1, 2, 3, 4)]),
+        _gapless((1, 1650, 60, 1), *[(s, 1651, 60, 1) for s in (2, 3, 4)]),
+        _aligned(a, [(0, 1100, 300, 1), (1, 1100, 299, 1), (2, 1100, 300, 1)],
+                 {1: [250]}),
+        _gapless((0, 1500, 300, 1), (1, 1499, 300, 1), (2, 1500, 300, 1)),
     ]),
     # row 1 has no base in the run [0, 80), which drops it; the run
     # [145, 300) starts on its gaps and falls back to the good slice
@@ -231,6 +136,10 @@ RESOLVE_CASES = {
 }
 # pieces admitted, each as (rows, the candidate it is, or None), per case
 RESOLVE_WANT = {
+    # the gapped runs [0, 100) and [160, 300), the second with the gap
+    # column, and the gapless runs [0, 151) and [211, 300)
+    "blocked_pair": [(4, 0), (4, 1), (3, None), (3, None), (3, None),
+                     (3, None)],
     "occupancy_runs": [(4, 0), (3, None), (3, None)],
     "row_without_base": [(4, 0), (2, None), (3, None)],
     "one_row_left": [(3, 0), (1, None)],
@@ -259,7 +168,6 @@ def _resolved(accepted, cands):
 
 @pytest.mark.parametrize("case", sorted(RESOLVE_CASES))
 def test_resolve_native_matches_python_and_reference(case):
-    from npge_tpu_torch import native
     from npge_tpu_torch.algo.overlaps import resolve_overlaps
     from npge_tpu_torch.trace import StageTimings
 
@@ -273,22 +181,19 @@ def test_resolve_native_matches_python_and_reference(case):
     )
     assert [(len(p[0]), i) for p, i in zip(*want)] == RESOLVE_WANT[case]
     arena, cfg = port_arena(ref_arena), port_config(CFG)
-    assert native.have_native()
-    for use_native in (True, False):
-        cands = _made(specs, port_blocks, port_fragments)
-        t = StageTimings()
-        got = resolve_overlaps(cands, arena, cfg, use_native, timings=t)
-        assert _resolved(got, cands) == want, use_native
-        c = t.counters
-        n_gapped = sum(
-            aln is not None
-            or any(st + ln > arena.seq_len(s) for s, st, ln, _ in rows)
-            for rows, aln in specs
-        )
-        assert c["resolve.native_calls"] == int(use_native)
-        assert c["resolve.python_cands"] == (0 if use_native else len(specs))
-        assert c["resolve.native_gapped_cands"] == (
-            n_gapped if use_native else 0)
+    cands = _made(specs, port_blocks, port_fragments)
+    t = StageTimings()
+    got = resolve_overlaps(cands, arena, cfg, timings=t)
+    assert _resolved(got, cands) == want
+    c = t.counters
+    n_gapped = sum(
+        aln is not None
+        or any(st + ln > arena.seq_len(s) for s, st, ln, _ in rows)
+        for rows, aln in specs
+    )
+    assert c["resolve.native_calls"] == 1
+    assert c["resolve.native_cands"] == len(specs)
+    assert c["resolve.native_gapped_cands"] == n_gapped
 
 
 RESEED_WORLDS = {
@@ -303,9 +208,8 @@ RESEED_WORLDS = {
 def test_reseed_round_input_matches_reference(world, monkeypatch):
     """The first re-seed round's resolve input recorded from a CPU build
     (the blockset's multi-fragment blocks, gapped ones among them, and the
-    mapped candidates): the native pass gives the Python path's and the
-    reference's pieces, whole admissions as the same objects, and cuts
-    some gapped candidate; the build makes one native call per resolve."""
+    mapped candidates): the native pass gives the reference's pieces,
+    whole admissions as the same objects, and cuts some gapped candidate; the build makes one native call per resolve."""
     from npge_tpu_torch.algo import pangenome
     from npge_tpu_torch.algo.overlaps import resolve_overlaps
 
@@ -323,7 +227,6 @@ def test_reseed_round_input_matches_reference(world, monkeypatch):
     monkeypatch.setattr(pangenome, "resolve_overlaps", recording)
     _, t = pangenome.build_pangenome(arena, cfg, "cpu")
     assert t.counters["resolve.native_calls"] == len(inputs) > 1
-    assert t.counters["resolve.python_cands"] == 0
     cands = next(c for c in inputs if isinstance(c, list))
     ref_cands = [
         ref_blocks.Block(
@@ -338,6 +241,5 @@ def test_reseed_round_input_matches_reference(world, monkeypatch):
         ref_cands,
     )
     assert any(p[4] is not None and i is None for p, i in zip(*want))
-    for use_native in (True, False):
-        got = resolve_overlaps(cands, arena, cfg, use_native)
-        assert _resolved(got, cands) == want, use_native
+    got = resolve_overlaps(cands, arena, cfg)
+    assert _resolved(got, cands) == want

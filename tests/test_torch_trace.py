@@ -79,7 +79,7 @@ def test_build_counts_its_work(built):
                  "extend.useful_slot_rounds", "reseed.rounds", "reseed.mapped",
                  "resolve.native_cands", "deconseq.fast"):
         assert c.get(name, 0) > 0, name
-    assert "resolve.python_cands" in c and "deconseq.general" in c
+    assert "deconseq.general" in c
     assert c["extend.useful_slot_rounds"] <= c["extend.slot_rounds"]
     assert c["reseed.reverted"] <= c["reseed.rounds"]
 
