@@ -4,14 +4,17 @@ Counterpart of ``npge_tpu/algo/gapext.py``. The SW pass of
 :func:`gapped_extend_blocks` (flank endpoints of every (block, side,
 fragment) pair) runs the port's ``sw_extend_windows`` on the arena's device
 copy of codes2: the CUDA kernel on a GPU, its plain torch version on the
-CPU. Single process. Path recovery (host NW), the center-star merge,
-trimming and splicing are host code, copied from the reference.
+CPU. Single process. Path recovery (the fixed-query NW, its traceback and
+the center-star merge of each block side) is one C++ call a pass
+(``native.gapext_paths``); trimming and splicing are host code, copied from
+the reference.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from npge_tpu_torch import native
 from npge_tpu_torch.config import Config
 from npge_tpu_torch.device import to_host, upload_arena
 from npge_tpu_torch.model.arena import GenomeArena
@@ -51,147 +54,6 @@ def _side_bases(frags: FragmentTable, arena: GenomeArena):
     base_r = np.where(ori == 1, hi, 2 * T - lo)
     base_l = np.where(ori == 1, 2 * T - lo, hi)
     return base_l, base_r
-
-
-# mirrors npge_tpu/algo/gapext.py:_nw_traceback
-def _nw_traceback(H, q, t, match: int, mismatch: int, gap: int):
-    """Path recovery from a filled H grid (deterministic tie-breaks:
-    smallest target end, diag > up > left). Returns (aligned, ins) — see
-    the reference's ``npge_tpu/algo/gapext.py:_nw_fixed_query``."""
-    A = len(q)
-    j = int(np.argmax(H[A]))  # smallest j on ties
-    aligned = np.full(A, -1, np.int16)
-    ins: list[list[int]] = [[] for _ in range(A + 1)]
-    i = A
-    while i > 0 or j > 0:
-        if i > 0 and j > 0 and H[i, j] == H[i - 1, j - 1] + (
-            match if (t[j - 1] == q[i - 1] and q[i - 1] < 4) else mismatch
-        ):
-            aligned[i - 1] = t[j - 1]
-            i -= 1
-            j -= 1
-        elif i > 0 and H[i, j] == H[i - 1, j] + gap:
-            i -= 1
-        else:
-            ins[i].append(int(t[j - 1]))
-            j -= 1
-    return aligned, [np.array(x[::-1], np.uint8) for x in ins]
-
-
-# mirrors npge_tpu/algo/gapext.py:_nw_fixed_query_batch
-def _nw_fixed_query_batch(
-    pairs: list, match: int, mismatch: int, gap: int,
-    chunk_bytes: int = 1 << 28, no_fast: bool = False,
-):
-    """Batched ``npge_tpu/algo/gapext.py:_nw_fixed_query`` (the
-    reference's) over (q, t) pairs — bit-identical
-    results (VERDICT r2 item 7: the per-pair row loop dominated gapext's
-    host wall; here the A-row recurrence runs once per chunk, vectorized
-    over pairs and target positions).
-
-    Padding is inert: pair (A_p, T_p) entries of the padded H grid depend
-    only on q[:A_p] / t[:T_p] (the running-max transform accumulates left
-    to right), so every traceback reads exactly the values the per-pair
-    code would produce.
-
-    Exact-prefix fast path: when t[:len(q)] == q (with real bases — the
-    sentinel N-codes never match), the NW optimum is the all-diagonal
-    path ending at j = len(q) (diag is preferred on traceback ties and
-    trailing target positions only add gap penalties, argmax ties break
-    to the smallest j), so (aligned=q-window of t, no insertions) is
-    bit-identical to the DP result. High-identity worlds resolve most
-    flank pairs this way, skipping both the grid and the per-pair
-    traceback loop (the dominant gapext host cost at 100 genomes)."""
-    out = [None] * len(pairs)
-    exact = []
-    for p, (q, t) in enumerate(pairs):
-        A = len(q)
-        if not no_fast and (
-            A == 0
-            or (
-                len(t) >= A
-                and (q < 4).all()
-                and np.array_equal(t[:A], q)
-            )
-        ):
-            out[p] = (
-                t[: A].astype(np.int16) if A else np.zeros(0, np.int16),
-                [np.zeros(0, np.uint8) for _ in range(A + 1)],
-            )
-            exact.append(p)
-    if len(exact) == len(pairs):
-        return out
-    order = sorted(
-        (p for p in range(len(pairs)) if out[p] is None),
-        key=lambda p: len(pairs[p][1]),
-    )
-    pos = 0
-    while pos < len(order):
-        # group pairs of similar target length to bound padded waste
-        sel = [order[pos]]
-        Amax = len(pairs[order[pos]][0])
-        Tmax = len(pairs[order[pos]][1])
-        while pos + len(sel) < len(order):
-            np_ = order[pos + len(sel)]
-            A2 = max(Amax, len(pairs[np_][0]))
-            T2 = max(Tmax, len(pairs[np_][1]))
-            if (len(sel) + 1) * (A2 + 1) * (T2 + 1) * 4 > chunk_bytes:
-                break
-            sel.append(np_)
-            Amax, Tmax = A2, T2
-        P = len(sel)
-        qpad = np.full((P, Amax), 254, np.uint8)  # sentinels never match
-        tpad = np.full((P, Tmax), 255, np.uint8)
-        for r, p in enumerate(sel):
-            q, t = pairs[p]
-            qpad[r, : len(q)] = q
-            tpad[r, : len(t)] = t
-        jj = np.arange(Tmax + 1, dtype=np.int32)
-        H = np.empty((P, Amax + 1, Tmax + 1), np.int32)
-        H[:, 0] = gap * jj
-        for i in range(1, Amax + 1):
-            qi = qpad[:, i - 1][:, None]
-            # N (code >= 4) never matches anything, including N
-            sub = np.where((tpad == qi) & (qi < 4), match, mismatch)
-            prev = H[:, i - 1]
-            tmp = np.maximum(prev[:, :-1] + sub, prev[:, 1:] + gap)
-            y = np.concatenate([prev[:, :1] + gap, tmp], axis=1) - gap * jj
-            H[:, i] = np.maximum.accumulate(y, axis=1) + gap * jj
-        for r, p in enumerate(sel):
-            q, t = pairs[p]
-            out[p] = _nw_traceback(
-                H[r, : len(q) + 1, : len(t) + 1], q, t, match, mismatch, gap
-            )
-        pos += P
-    return out
-
-
-# mirrors npge_tpu/algo/gapext.py:_merge_center_star
-def _merge_center_star(q: np.ndarray, results: list) -> np.ndarray:
-    """MSA columns [F, C] from per-fragment (aligned, ins) paths against the
-    shared representative q (row 0). Insertion slots between representative
-    positions are sized by the max insertion run; runs are left-aligned."""
-    A = len(q)
-    Fm1 = len(results)
-    # per-fragment insertion-run lengths [Fm1, A] (slot A, trailing, dropped)
-    run_len = np.zeros((Fm1, A), np.int64)
-    for fi, (aligned, ins) in enumerate(results):
-        run_len[fi] = [len(ins[a]) for a in range(A)]
-    n_ins = run_len.max(axis=0) if Fm1 else np.zeros(A, np.int64)
-    # column layout: [ins slot a][match col a] repeated — match_col[a] is
-    # the a-th match column, ins runs are left-aligned in their slot
-    match_col = np.cumsum(n_ins) + np.arange(A)
-    ins_col0 = match_col - n_ins
-    Ccols = A + int(n_ins.sum())
-    cols = np.full((Fm1 + 1, Ccols), C.GAP, np.uint8)
-    cols[0, match_col] = q
-    for fi, (aligned, ins) in enumerate(results, start=1):
-        has = aligned >= 0
-        cols[fi, match_col[has]] = aligned[has].astype(np.uint8)
-        for a in np.flatnonzero(run_len[fi - 1]):
-            c0 = int(ins_col0[a])
-            cols[fi, c0 : c0 + int(run_len[fi - 1, a])] = ins[a]
-    return cols
 
 
 # mirrors npge_tpu/algo/gapext.py:_trim_good
@@ -266,10 +128,10 @@ def gapped_extend_blocks(
     ``probe_cache`` memoizes no-extension probes across calls, keyed by
     (block object, side, per-fragment caps); entries pin their block.
     ``timings`` receives the phases as spans ``gapext.assemble``, ``.sw``,
-    ``.nw`` and ``.apply``, the transfers and the pair counters."""
-
-    def flank(base, cap):
-        return codes2[base : base + cap]
+    ``.nw`` and ``.apply``, the transfers, the pair counters and the path
+    recovery's ``gapext.nw_calls`` (native calls), ``.nw_pairs``,
+    ``.nw_dp_pairs`` (pairs that needed the DP) and ``.nw_cells`` (cells of
+    their grids)."""
 
     with span(timings, "gapext.assemble"):
         arena = bs.arena
@@ -361,7 +223,29 @@ def gapped_extend_blocks(
             timings.count("gapext.sw_launches", sw_ops.SW_LAUNCHES - launches)
 
     with span(timings, "gapext.nw"):
-        # ---- per-job path recovery, merge, trim, splice ----
+        # ---- path recovery and center-star merge of every job that
+        # advances, in one native call; a target window is the lockstep
+        # advance plus bounded indel slack ----
+        work = np.flatnonzero(adv > 0)
+        if len(work):
+            live = adv[owner] > 0
+            t_len = np.maximum(
+                np.minimum(tcap[live], adv[owner[live]] + cfg.SW_XDROP), 0
+            )
+            cols_buf, col_off, n_cols, dp_pairs, dp_cells, calls = (
+                native.gapext_paths(
+                    codes2, qb[np.searchsorted(owner, work)], adv[work],
+                    np.concatenate([[0], np.cumsum(n_pairs[work])]), tb[live],
+                    t_len, cfg.SW_MATCH, cfg.SW_MISMATCH, cfg.SW_GAP, C.GAP,
+                )
+            )
+            if timings is not None:
+                timings.count("gapext.nw_calls", calls)
+                timings.count("gapext.nw_pairs", len(t_len))
+                timings.count("gapext.nw_dp_pairs", dp_pairs)
+                timings.count("gapext.nw_cells", dp_cells)
+
+    with span(timings, "gapext.apply"):
         stats_cache: dict[int, tuple[int, int]] = {}
 
         def block_stats(bi: int) -> tuple[int, int]:
@@ -372,41 +256,18 @@ def gapped_extend_blocks(
                 stats_cache[bi] = st
             return st
 
-        # ---- batched path recovery across all (job, fragment) pairs ----
-        nw_pairs = []  # (q, t) in job order
-        pair_job = []
-        job_q: dict[int, np.ndarray] = {}
-        for j, (bi, side, cap, base, _b0, _key) in enumerate(jobs):
-            A = int(adv[j])
-            if A <= 0:
-                continue
-            q = flank(int(base[0]), A)
-            job_q[j] = q
-            for fi in range(1, len(cap)):
-                # target window: lockstep advance plus bounded indel slack
-                tcap_f = int(min(cap[fi], A + cfg.SW_XDROP))
-                nw_pairs.append((q, flank(int(base[fi]), max(tcap_f, 0))))
-                pair_job.append(j)
-        nw_out = _nw_fixed_query_batch(
-            nw_pairs, cfg.SW_MATCH, cfg.SW_MISMATCH, cfg.SW_GAP
-        )
-
-    with span(timings, "gapext.apply"):
-        job_results: dict[int, list] = {j: [] for j in job_q}
-        for r, j in zip(nw_out, pair_job):
-            job_results[j].append(r)
-
         applied = 0
+        k = 0  # the job's index in ``work``
         for j, (bi, side, cap, base, _b0, _key) in enumerate(jobs):
             # no-ext results are cached only while blocks[bi] is still the
             # block the key captured
             cacheable = probe_cache is not None and blocks[bi] is _b0
-            if j not in job_q:
-                if cacheable:  # adv <= 0: nothing to extend
+            if adv[j] <= 0:
+                if cacheable:  # nothing to extend
                     probe_cache[_key] = _b0
                 continue
-            q = job_q[j]
-            cols = _merge_center_star(q, job_results[j])
+            cols = cols_buf[col_off[k] : col_off[k + 1]].reshape(len(cap), n_cols[k])
+            k += 1
             good0, total0 = block_stats(bi)
             c = _trim_good(cols, good0, total0, cfg)
             if c == 0:

@@ -611,3 +611,174 @@ int64_t npge_nw_align(const unsigned char* a, int64_t n,
 }
 
 }  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Gapped extension's path recovery: for every job (a block side), the
+// fixed-query NW of each fragment's flank against the representative's
+// flank q, its traceback, and the center-star merge of the job's rows —
+// the exact mirror of npge_tpu/algo/gapext.py's _nw_fixed_query (values
+// AND traceback tie-breaks: smallest target end, then diag > up > left)
+// and _merge_center_star. One call covers a whole gapext pass.
+
+namespace {
+
+struct PathScratch {
+    std::vector<int32_t> H;               // (A+1) x (T+1) grid of one pair
+    std::vector<unsigned char> aligned;   // [pairs, A], gap_code if deleted
+    std::vector<int32_t> run;             // [pairs, A] insertion run a slot
+    std::vector<unsigned char> ins;       // inserted codes, slot order
+    std::vector<int64_t> ins_off;         // [pairs + 1] into ins
+    std::vector<int64_t> width;           // [A] widest run a slot
+    std::vector<std::pair<int64_t, unsigned char>> stack;  // traceback's
+};
+
+// The fixed-query NW of q[0..A) against the free-ended t[0..T): H row 0 is
+// gap*j, a cell max(diag + sub, up + gap, left + gap), sub = match only
+// where t == q and q is a real base (an N matches nothing, not even an N).
+// Writes the path into al[0..A) (the target code matched to each query
+// position, gap_code for a deletion) and appends its insertions to sc.ins
+// in slot order, counting them in run[0..A) (slot A, the trailing one, is
+// never reached: the path starts at the smallest j of the largest H[A][j]).
+void nw_path(const unsigned char* q, int64_t A, const unsigned char* t,
+             int64_t T, int32_t match, int32_t mismatch, int32_t gap,
+             unsigned char gap_code, PathScratch& sc, unsigned char* al,
+             int32_t* run) {
+    const int64_t W = T + 1;
+    if ((int64_t)sc.H.size() < (A + 1) * W) sc.H.resize((A + 1) * W);
+    int32_t* H = sc.H.data();
+    for (int64_t j = 0; j <= T; ++j) H[j] = gap * (int32_t)j;
+    for (int64_t i = 1; i <= A; ++i) {
+        int32_t* cur = H + i * W;
+        const int32_t* prev = cur - W;
+        const unsigned char qi = q[i - 1];
+        const bool real = qi < 4;
+        cur[0] = prev[0] + gap;
+        for (int64_t j = 1; j <= T; ++j) {
+            int32_t best = prev[j - 1] + ((real && t[j - 1] == qi) ? match
+                                                                 : mismatch);
+            const int32_t up = prev[j] + gap;
+            if (up > best) best = up;
+            const int32_t left = cur[j - 1] + gap;
+            if (left > best) best = left;
+            cur[j] = best;
+        }
+    }
+    const int32_t* last = H + A * W;
+    int64_t j = 0;
+    for (int64_t k = 1; k <= T; ++k)
+        if (last[k] > last[j]) j = k;
+    std::fill(al, al + A, gap_code);
+    std::fill(run, run + A, 0);
+    sc.stack.clear();
+    int64_t i = A;
+    while (i > 0 || j > 0) {
+        const int32_t c = H[i * W + j];
+        if (i > 0 && j > 0 &&
+            c == H[(i - 1) * W + j - 1] +
+                     ((q[i - 1] < 4 && t[j - 1] == q[i - 1]) ? match
+                                                             : mismatch)) {
+            al[i - 1] = t[j - 1];
+            --i;
+            --j;
+        } else if (i > 0 && c == H[(i - 1) * W + j] + gap) {
+            --i;
+        } else {
+            sc.stack.emplace_back(i, t[j - 1]);
+            --j;
+        }
+    }
+    for (auto it = sc.stack.rbegin(); it != sc.stack.rend(); ++it) {
+        if (it->first < A) ++run[it->first];
+        sc.ins.push_back(it->second);
+    }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Job k has the query codes2[job_qbase[k] .. + job_adv[k]) (job_adv >= 1)
+// and the pairs [job_pairs[k], job_pairs[k+1]), pair p the target
+// codes2[pair_tbase[p] .. + pair_tlen[p]). A pair whose target starts with
+// q, all real bases, takes the all-diagonal path without a grid (the DP's
+// own answer: diag wins its ties, trailing target only costs gaps, and the
+// smallest end wins). Writes job_cols_off[0..n_jobs] (job k's columns are
+// the [pairs + 1, job_ncols[k]] C-contiguous bytes at cols +
+// job_cols_off[k], row 0 the query), job_ncols, and stats = {pairs that
+// needed the DP, cells of their grids}. Returns job_cols_off[n_jobs]; the
+// columns were written only where that is at most cols_cap.
+int64_t npge_gapext_paths(
+    const unsigned char* codes2, int64_t n_jobs, const int64_t* job_qbase,
+    const int64_t* job_adv, const int64_t* job_pairs,
+    const int64_t* pair_tbase, const int64_t* pair_tlen,
+    int64_t match, int64_t mismatch, int64_t gap, unsigned char gap_code,
+    unsigned char* cols, int64_t cols_cap, int64_t* job_cols_off,
+    int64_t* job_ncols, int64_t* stats) {
+    PathScratch sc;
+    int64_t dp_pairs = 0, dp_cells = 0;
+    job_cols_off[0] = 0;
+    for (int64_t k = 0; k < n_jobs; ++k) {
+        const unsigned char* q = codes2 + job_qbase[k];
+        const int64_t A = job_adv[k];
+        const int64_t p0 = job_pairs[k], np = job_pairs[k + 1] - p0;
+        bool q_real = true;
+        for (int64_t a = 0; a < A && q_real; ++a) q_real = q[a] < 4;
+        sc.aligned.resize(np * A);
+        sc.run.resize(np * A);
+        sc.ins.clear();
+        sc.ins_off.assign(1, 0);
+        for (int64_t p = 0; p < np; ++p) {
+            const unsigned char* t = codes2 + pair_tbase[p0 + p];
+            const int64_t T = pair_tlen[p0 + p];
+            unsigned char* al = sc.aligned.data() + p * A;
+            int32_t* run = sc.run.data() + p * A;
+            if (q_real && T >= A && std::memcmp(t, q, A) == 0) {
+                std::memcpy(al, t, A);
+                std::fill(run, run + A, 0);
+            } else {
+                nw_path(q, A, t, T, (int32_t)match, (int32_t)mismatch,
+                        (int32_t)gap, gap_code, sc, al, run);
+                ++dp_pairs;
+                dp_cells += (A + 1) * (T + 1);
+            }
+            sc.ins_off.push_back((int64_t)sc.ins.size());
+        }
+        // center-star: each slot as wide as its longest run, runs
+        // left-aligned in it, row 0 the query
+        sc.width.assign(A, 0);
+        for (int64_t p = 0; p < np; ++p) {
+            const int32_t* run = sc.run.data() + p * A;
+            for (int64_t a = 0; a < A; ++a)
+                if (run[a] > sc.width[a]) sc.width[a] = run[a];
+        }
+        int64_t C = A;
+        for (int64_t a = 0; a < A; ++a) C += sc.width[a];
+        const int64_t off = job_cols_off[k];
+        job_ncols[k] = C;
+        job_cols_off[k + 1] = off + (np + 1) * C;
+        if (job_cols_off[k + 1] > cols_cap) continue;
+        unsigned char* out = cols + off;
+        std::memset(out, gap_code, (np + 1) * C);
+        for (int64_t a = 0, c = 0; a < A; ++a) {
+            c += sc.width[a];
+            out[c++] = q[a];
+        }
+        for (int64_t p = 0; p < np; ++p) {
+            unsigned char* row = out + (p + 1) * C;
+            const unsigned char* al = sc.aligned.data() + p * A;
+            const int32_t* run = sc.run.data() + p * A;
+            const unsigned char* ins = sc.ins.data() + sc.ins_off[p];
+            for (int64_t a = 0, c = 0; a < A; ++a) {
+                std::memcpy(row + c, ins, run[a]);
+                ins += run[a];
+                c += sc.width[a];
+                row[c++] = al[a];
+            }
+        }
+    }
+    stats[0] = dp_pairs;
+    stats[1] = dp_cells;
+    return job_cols_off[n_jobs];
+}
+
+}  // extern "C"

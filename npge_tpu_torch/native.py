@@ -67,6 +67,12 @@ def load_library() -> ctypes.CDLL:
         c_u8p, c_u8p,
     ]
     lib.npge_nw_align.restype = ctypes.c_int64
+    lib.npge_gapext_paths.argtypes = [
+        c_u8p, ctypes.c_int64, c_i64p, c_i64p, c_i64p, c_i64p, c_i64p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint8,
+        c_u8p, ctypes.c_int64, c_i64p, c_i64p, c_i64p,
+    ]
+    lib.npge_gapext_paths.restype = ctypes.c_int64
     _lib = lib
     return _lib
 
@@ -174,6 +180,65 @@ def resolve_overlaps(
         *(a[:nf].copy() for a in (o_seq, o_start, o_len, o_ori, o_row)),
         *(a[:nb].copy() for a in (o_src, o_c0, o_c1, o_whole)),
     )
+
+
+def gapext_paths(
+    codes2: np.ndarray,
+    q_base: np.ndarray,
+    adv: np.ndarray,
+    pair_off: np.ndarray,
+    t_base: np.ndarray,
+    t_len: np.ndarray,
+    match: int,
+    mismatch: int,
+    gap: int,
+    gap_code: int,
+):
+    """Gapped extension's path recovery for a whole pass in C++: job k
+    aligns the targets ``codes2[t_base[p] : t_base[p] + t_len[p]]`` of its
+    pairs ``pair_off[k] : pair_off[k + 1]`` (at least one) to its query
+    ``codes2[q_base[k] : q_base[k] + adv[k]]`` (``adv[k] >= 1``) by the
+    fixed-query NW and merges the paths center-star. Returns (cols,
+    col_off, n_cols, dp_pairs, dp_cells, calls): job k's columns are
+    ``cols[col_off[k] : col_off[k + 1]]`` as [pairs + 1, n_cols[k]], row 0
+    the query; dp_pairs pairs needed the DP, in grids of dp_cells cells;
+    calls is 1, or 2 where the first buffer, sized for insertions that
+    share their slots, was short."""
+    lib = load_library()
+    codes2 = np.ascontiguousarray(codes2, np.uint8)
+    q_base, adv, pair_off, t_base, t_len = (
+        np.ascontiguousarray(a, np.int64)
+        for a in (q_base, adv, pair_off, t_base, t_len)
+    )
+    n = len(adv)
+    rows = np.diff(pair_off)
+    if (
+        len(q_base) != n or len(pair_off) != n + 1 or pair_off[0] != 0
+        or (rows < 1).any() or len(t_base) != pair_off[-1]
+        or len(t_len) != len(t_base) or (adv < 1).any() or (t_len < 0).any()
+        or (q_base < 0).any() or (t_base < 0).any()
+        or (q_base + adv > len(codes2)).any()
+        or (t_base + t_len > len(codes2)).any()
+    ):
+        raise ValueError("gapext_paths: jobs or pairs out of range")
+    col_off = np.zeros(n + 1, np.int64)
+    n_cols = np.zeros(n, np.int64)
+    stats = np.zeros(2, np.int64)
+    # enough for every job whose fragments insert in the same slots (a
+    # job's columns are then at most its query plus its longest target)
+    t_max = np.maximum.reduceat(t_len, pair_off[:-1]) if n else t_len
+    cap = int(((rows + 1) * (adv + t_max)).sum())
+    calls = 0
+    while True:
+        cols = np.empty(cap, np.uint8)
+        need = lib.npge_gapext_paths(
+            codes2, n, q_base, adv, pair_off, t_base, t_len, match, mismatch,
+            gap, gap_code, cols, cap, col_off, n_cols, stats,
+        )
+        calls += 1
+        if need <= cap:
+            return cols, col_off, n_cols, int(stats[0]), int(stats[1]), calls
+        cap = need
 
 
 def uncovered_runs(occ: np.ndarray):
