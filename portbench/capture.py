@@ -88,7 +88,8 @@ class Recorder:
         def note_scan(arena, cfg, k, groups):
             self._note({
                 "kind": "scan", "codes": arena.codes, "offsets": arena.offsets,
-                "circular": any(arena.circular(i) for i in range(arena.n_seqs)),
+                "circular": np.fromiter((arena.circular(i) for i in range(arena.n_seqs)),
+                                        bool, arena.n_seqs),
                 "k": int(k or cfg.ANCHOR_SIZE), "w": cfg.MINIMIZER_WINDOW,
                 "max_fragments": cfg.MAX_ANCHOR_FRAGMENTS,
                 "dedupe": cfg.ANCHOR_DEDUPE_WINDOW, "out": groups,

@@ -31,6 +31,11 @@ layer by layer, and every build's answer against that build's:
                            partition_errors)
   builds_differing         every other build's answer against this one's
 
+Circular worlds are held as linear ones are, by the references' cyclic
+rules: the scan of a circular arena by the cyclic plain scan, fragments
+that cross an origin read round it, and the origin's pairs among the pairs
+left to join.
+
 The first scan reads the world the harness made; the later scans and their
 extensions read the consensus arenas the program made from its own blocks
 (each held to the reference's consensus of those blocks), and the SW
@@ -84,18 +89,19 @@ def _groups(g):
             np.asarray(g.strand))
 
 
-def check_scans(calls, world_codes, world_offsets):
+def check_scans(calls, world_codes, world_offsets, world_circular=None):
     """anchor_groups_differing, and each scan's reference groups by the
     id of the program's groups object."""
     bad, ref_of = 0, {}
     first = True
     for c in (c for c in calls if c["kind"] == "scan"):
-        codes, offsets = (world_codes, world_offsets) if first else (c["codes"], c["offsets"])
+        if first:
+            codes, offsets, circular = world_codes, world_offsets, world_circular
+        else:
+            codes, offsets, circular = c["codes"], c["offsets"], c["circular"]
         first = False
-        if c["circular"]:
-            raise ValueError("the plain scan takes linear sequences only")
         want = ref_anchors.anchor_groups(
-            codes, offsets, c["k"], c["w"], c["max_fragments"], c["dedupe"])
+            codes, offsets, c["k"], c["w"], c["max_fragments"], c["dedupe"], circular)
         bad += ref_anchors.groups_differing(want, _groups(c["out"]))
         ref_of[id(c["out"])] = (want, c["k"], codes, offsets)
     return bad, ref_of
@@ -140,8 +146,8 @@ class _PerBlock:
     re-seed rounds hand on most blocks unchanged, as the same objects,
     which the records keep alive."""
 
-    def __init__(self, codes, offsets):
-        self.codes, self.offsets = codes, offsets
+    def __init__(self, codes, offsets, circular=None):
+        self.codes, self.offsets, self.circular = codes, offsets, circular
         self._plain, self._cons = {}, {}
 
     def plain(self, blocks):
@@ -159,7 +165,7 @@ class _PerBlock:
             hit = self._cons.get(id(b))
             if hit is None:
                 hit = self._cons[id(b)] = ref_consensus.block_consensus(
-                    self.codes, self.offsets, frags, rows)
+                    self.codes, self.offsets, frags, rows, self.circular)
             out.append(hit)
         return out
 
@@ -176,7 +182,8 @@ def check_consensus(calls, per_block):
 def check_mapping(calls, per_block):
     bad = 0
     for c in (c for c in calls if c["kind"] == "deconseq"):
-        want = ref_consensus.mapped_back(c["cand"], c["src"], per_block.plain(c["blocks"]))
+        want = ref_consensus.mapped_back(c["cand"], c["src"], per_block.plain(c["blocks"]),
+                                         per_block.offsets, per_block.circular)
         out = plain_blocks(c["out"])
         g_off = np.zeros(len(out) + 1, np.int64)
         np.cumsum([len(fr[0]) for fr, _rows in out], out=g_off[1:])
@@ -230,32 +237,35 @@ def check_sw(calls, world_codes, device):
 
 
 def compare(calls, answers, sampled: int, world_codes, world_offsets, cfg,
-            seed: int, device):
+            seed: int, device, world_circular=None):
     """(checks [(name, value, limit)], SW batches of the sampled build,
     seconds spent on each part).
     ``calls``: the sampled build's records; ``answers``: every build's
-    final blocks as ``plain_blocks``, in build order."""
+    final blocks as ``plain_blocks``, in build order; ``world_circular``:
+    a flag per sequence of the world (None: linear sequences only)."""
     rng = np.random.default_rng([seed, 0x5EED])
     values, spent = {}, {}
     t = time.perf_counter()
-    values["anchor_groups_differing"], ref_of = check_scans(calls, world_codes, world_offsets)
+    values["anchor_groups_differing"], ref_of = check_scans(
+        calls, world_codes, world_offsets, world_circular)
     spent["scans"], t = time.perf_counter() - t, time.perf_counter()
     values["candidates_differing"] = check_extensions(calls, ref_of, rng)
     spent["extensions"], t = time.perf_counter() - t, time.perf_counter()
     values["sw_rows_differing"], batches = check_sw(calls, world_codes, device)
     spent["sw"], t = time.perf_counter() - t, time.perf_counter()
-    per_block = _PerBlock(world_codes, world_offsets)
+    per_block = _PerBlock(world_codes, world_offsets, world_circular)
     values["consensus_differing"] = check_consensus(calls, per_block)
     values["mapped_missing"] = check_mapping(calls, per_block)
     values["reseed_short_of_kmin"] = reseed_short(calls, cfg.MIN_ANCHOR_SIZE)
     spent["consensus"], t = time.perf_counter() - t, time.perf_counter()
     mine = answers[sampled]
-    values["partition_errors"] = ref_blockset.partition_errors(world_offsets, mine)
+    values["partition_errors"] = ref_blockset.partition_errors(
+        world_offsets, mine, world_circular)
     values["bad_blocks"], _faults = ref_blockset.bad_blocks(
         world_codes, world_offsets, mine, cfg.MIN_LENGTH, cfg.MIN_END,
-        cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den)
+        cfg.MIN_IDENTITY.num, cfg.MIN_IDENTITY.den, world_circular)
     rules = (cfg.MIN_LENGTH, cfg.MIN_END, cfg.MIN_IDENTITY.num,
-             cfg.MIN_IDENTITY.den, cfg.MAX_JOIN_GAP)
+             cfg.MIN_IDENTITY.den, cfg.MAX_JOIN_GAP, world_circular)
     values["joinable_pairs"] = ref_joins.joinable_pairs(
         world_codes, world_offsets, mine, *rules) + sum(
         ref_joins.joinable_pairs(world_codes, world_offsets,

@@ -55,7 +55,13 @@ def load_cell(root: Path, name: str):
 
 
 def metric_reader(root: Path, name: str):
+    """``metrics/<name>.py``'s ``read``. A metric ``<base>.<role>`` without
+    a file of its own reads as ``<base>`` does: the same quantity, in cells
+    where it moves another end-to-end metric."""
     path = root / PKG.name / "metrics" / f"{name}.py"
+    if not path.exists() and "." in name:
+        name = name.split(".", 1)[0]
+        path = root / PKG.name / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(f"portbench.metrics.{name}", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -111,6 +117,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
         devices = [dev]
     names, seqs = world.make_world(config, traffic, seed)
     world_codes, world_offsets = world.concat(seqs)
+    world_circular = np.array([n.endswith("&c") for n in names], bool)
 
     planted = capture.Patches()
     if plant is not None:
@@ -144,7 +151,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
     t0 = time.perf_counter()
     checks, batches, spent = check.compare(
         rec.calls.get(sampled, []), answers, sampled, world_codes,
-        world_offsets, cfg, seed, dev)
+        world_offsets, cfg, seed, dev, world_circular)
     kinds = [c["kind"] for c in rec.calls.get(sampled, [])]
     log(f"[check] build {sampled} of {n} held to the reference in "
         f"{time.perf_counter() - t0:.3f} s: {kinds.count('scan')} scans, "
@@ -157,7 +164,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
         "n_builds": n, "books": result["books"], "counters": result["counters"],
         "sw_pairs": rec.sw_pairs.get(sampled, 0), "sw_batches": batches,
         "peak_bytes": result["peak_bytes"], "device_name": _device_name(dev),
-        "chips": chips,
+        "chips": chips, "walls": result["walls"],
     }
     if trace:
         record.update(result["trace"])
@@ -170,7 +177,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
             if v is not None:
                 out_metrics[m["name"]] = {"value": v, "unit": m["unit"]}
     else:
-        values = {"build_s": result["window_s"] / n, "setup_s": setup_s}
+        values = {"build_s": result["window_s"] / n, "setup_s": setup_s,
+                  "device_peak_gib": max(result["peak_bytes"]) / 2**30}
         for m in bench["end_to_end"]:
             if name in m.get("workloads", [name]):
                 out_metrics[m["name"]] = {"value": values[m["name"]], "unit": m["unit"]}

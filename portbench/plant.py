@@ -27,6 +27,11 @@ fewer_rounds  the consensus re-seed cut to two rounds (MAX_LOOPS 2), so it
 cons_base     one base of each re-seed round's consensus arena altered.
 no_deconseq   the re-seed's hits never mapped back to the genomes: every
               round finds nothing to add.
+no_halo       the scan of a circular arena (each build's first) run as the
+              linear scan, with no reading round the origins (circular
+              worlds).
+no_origin_join the joiner's links across the origin of a circular sequence
+              dropped (circular worlds).
 """
 
 from __future__ import annotations
@@ -187,6 +192,33 @@ def no_deconseq(p):
     p.set(PIPELINE, "deconseq", lambda *args, **kw: [])
 
 
+def no_halo(p):
+    inner = p.get(PIPELINE, "find_anchors")
+
+    def find_anchors(arena, cfg, device, k=None):
+        from npge_tpu_torch.model.arena import GenomeArena
+
+        if any(arena.circular(i) for i in range(arena.n_seqs)):
+            arena = GenomeArena.from_flat(arena.names, arena.codes, arena.offsets,
+                                          np.zeros(arena.n_seqs, bool))
+        return inner(arena, cfg, device, k=k)
+
+    p.set(PIPELINE, "find_anchors", find_anchors)
+
+
+def no_origin_join(p):
+    mod = "npge_tpu_torch.algo.joiner"
+    inner = p.get(mod, "_adjacency_links")
+
+    def _adjacency_links(bs, max_gap):
+        links = inner(bs, max_gap)
+        keep = ~links[-1]
+        return tuple(x[keep] for x in links)
+
+    p.set(mod, "_adjacency_links", _adjacency_links)
+
+
 PLANTS = {f.__name__: f for f in (
     control, unchanged, half_batch, no_exchange, anchor, sw_row, fragment,
-    row_text, one_build, no_join, fewer_rounds, cons_base, no_deconseq)}
+    row_text, one_build, no_join, fewer_rounds, cons_base, no_deconseq,
+    no_halo, no_origin_join)}

@@ -8,8 +8,10 @@ setting and re-checking its limits (not part of a measured run):
 Each seed builds its own world and runs a window of ``--seconds`` (one
 build at the least); with ``--plant`` each named entry of
 ``portbench.plant`` in turn replaces its part of the program first. One
-JSON line a seed and plant: the seed, ``correct``, the builds and each
-compared number.
+JSON line a seed and plant: the seed, ``correct``, the builds, their
+seconds each (the first build of a process pays its warm-up), the card's
+peak memory and each compared number; the harness's own lines, the check's
+seconds among them, go to standard error.
 """
 
 from __future__ import annotations
@@ -42,11 +44,12 @@ def main(argv=None) -> int:
 def _reading(harness, fn, name, seed, args):
     t0 = time.perf_counter()
     line = harness.run(args.workload, seed, args.seconds, False,
-                       t_start=t0, root=ROOT, plant=fn,
-                       log=lambda *a, **k: None, warm=False)
+                       t_start=t0, root=ROOT, plant=fn, warm=False)
     print(json.dumps({
         "workload": args.workload, "seed": seed, "plant": name,
         "correct": line["correct"], "builds": line["attempted"],
+        "build_s": line["metrics"].get("build_s", {}).get("value"),
+        "memory_peak_bytes": line["device"]["memory_peak_bytes"],
         "checks": {k: v["value"] for k, v in line["checks"].items()},
         "seconds": time.perf_counter() - t0,
     }), flush=True)

@@ -6,7 +6,15 @@ and reads the answer as plain arrays: per block, its fragments
 with gap code 5, or None for a gapless block, whose rows are the fragments'
 texts).
 
-The guarantees checked, over linear sequences:
+A fragment (sequence, start, length, strand) covers start .. start +
+length - 1. On a circular sequence of length L (``circular``: a flag per
+sequence, None for linear sequences only) a fragment with start < L and
+start + length > L, at most L long, crosses the origin: it covers
+start .. L - 1 and then 0 .. start + length - L - 1, and its text is read in
+that order. On a linear sequence, and beyond those bounds, a fragment that
+leaves its sequence is an error.
+
+The guarantees checked:
   * partition: every base of every sequence lies in exactly one fragment;
   * rows: each alignment row, gaps removed, is its fragment's text (the
     reverse complement for strand -1), and a gapless block's fragments are
@@ -27,40 +35,62 @@ GAP = 5
 COMP = np.array([3, 2, 1, 0, 4, 5], np.uint8)
 
 
-def fragment_text(codes, offsets, seq, start, length, ori) -> np.ndarray | None:
+def _crosses_ok(circular, seq, start, length, seq_len):
+    """Whether fragments may cross the origin where they overrun: on a
+    circular sequence, from a start inside it and at most its length
+    long."""
+    if circular is None:
+        return np.zeros(np.shape(seq), bool)
+    return np.asarray(circular, bool)[seq] & (start < seq_len) & (length <= seq_len)
+
+
+def fragment_text(codes, offsets, seq, start, length, ori, circular=None) -> np.ndarray | None:
     """The fragment's text, or None when it leaves its sequence."""
-    lo = int(offsets[seq]) + int(start)
-    if start < 0 or length < 0 or lo + length > int(offsets[seq + 1]):
+    off, end = int(offsets[seq]), int(offsets[seq + 1])
+    L = end - off
+    if start < 0 or length < 0:
         return None
-    s = codes[lo : lo + length]
+    over = int(start) + int(length) - L
+    if over <= 0:
+        s = codes[off + start : off + start + length]
+    elif _crosses_ok(circular, seq, start, length, L):
+        s = np.concatenate([codes[off + start : end], codes[off : off + over]])
+    else:
+        return None
     return COMP[s[::-1]] if ori == -1 else s
 
 
-def partition_errors(offsets, blocks) -> int:
+def partition_errors(offsets, blocks, circular=None) -> int:
     """Bases covered by no fragment plus bases covered more than once."""
     T = int(offsets[-1])
     diff = np.zeros(T + 1, np.int64)
     outside = 0
     for frags, _rows in blocks:
         seq, start, length = frags[0], frags[1], frags[2]
-        lo = offsets[seq] + start
-        hi = lo + length
-        bad = (start < 0) | (length <= 0) | (hi > offsets[seq + 1])
+        off, end = offsets[seq], offsets[seq + 1]
+        over = start + length - (end - off)
+        cross = (over > 0) & _crosses_ok(circular, seq, start, length, end - off)
+        bad = (start < 0) | (length <= 0) | ((over > 0) & ~cross)
         outside += int(length[bad].clip(min=0).sum())
+        lo = off + start
+        hi = np.where(cross, end, lo + length)
         np.add.at(diff, lo[~bad], 1)
         np.add.at(diff, hi[~bad], -1)
+        # the part after the origin of a fragment that crosses it
+        np.add.at(diff, off[cross], 1)
+        np.add.at(diff, (off + over)[cross], -1)
     cover = np.cumsum(diff[:-1])
     return int((cover != 1).sum()) + outside
 
 
-def block_rows(codes, offsets, frags, rows):
+def block_rows(codes, offsets, frags, rows, circular=None):
     """The block's alignment rows: its own, or for a gapless block its
     fragments' texts; None when a fragment leaves its sequence or the
     fragments of a gapless block are not all as long."""
     seq, start, length, ori = frags
     if rows is not None:
         return rows
-    texts = [fragment_text(codes, offsets, seq[i], start[i], length[i], ori[i])
+    texts = [fragment_text(codes, offsets, seq[i], start[i], length[i], ori[i], circular)
              for i in range(len(seq))]
     if any(t is None for t in texts) or len(set(int(x) for x in length)) > 1:
         return None
@@ -87,12 +117,13 @@ def good_fault(rows, min_length, min_end, num, den):
     return None
 
 
-def block_fault(codes, offsets, frags, rows, min_length, min_end, num, den):
+def block_fault(codes, offsets, frags, rows, min_length, min_end, num, den,
+                circular=None):
     """None for a sound block, else what breaks a guarantee."""
     seq, start, length, ori = frags
     texts = []
     for i in range(len(seq)):
-        t = fragment_text(codes, offsets, seq[i], start[i], length[i], ori[i])
+        t = fragment_text(codes, offsets, seq[i], start[i], length[i], ori[i], circular)
         if t is None:
             return "fragment leaves its sequence"
         texts.append(t)
@@ -111,11 +142,13 @@ def block_fault(codes, offsets, frags, rows, min_length, min_end, num, den):
     return good_fault(rows, min_length, min_end, num, den)
 
 
-def bad_blocks(codes, offsets, blocks, min_length, min_end, num, den):
+def bad_blocks(codes, offsets, blocks, min_length, min_end, num, den,
+               circular=None):
     """(count, first few faults) of blocks that break a guarantee."""
     faults = []
     for frags, rows in blocks:
-        f = block_fault(codes, offsets, frags, rows, min_length, min_end, num, den)
+        f = block_fault(codes, offsets, frags, rows, min_length, min_end, num, den,
+                        circular)
         if f is not None:
             faults.append(f)
     return len(faults), faults[:3]

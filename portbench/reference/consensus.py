@@ -7,7 +7,8 @@ or N where the column holds no real base, when its bases outnumber its gaps,
 and a gap otherwise; gap columns are dropped. A block whose consensus is
 empty adds no sequence.
 
-Blocks are read as the arrays of ``check.plain_blocks``.
+Blocks are read as the arrays of ``check.plain_blocks``; a fragment that
+crosses the origin of a circular sequence is read as ``blockset`` reads it.
 """
 
 from __future__ import annotations
@@ -26,10 +27,10 @@ def consensus(rows: np.ndarray) -> np.ndarray:
     return char[keep]
 
 
-def block_consensus(codes, offsets, frags, rows):
+def block_consensus(codes, offsets, frags, rows, circular=None):
     """The block's consensus sequence, or None when its rows cannot be
     read."""
-    rows = block_rows(codes, offsets, frags, rows)
+    rows = block_rows(codes, offsets, frags, rows, circular)
     return None if rows is None else consensus(rows)
 
 
@@ -70,15 +71,18 @@ def block_keys(offsets, frags) -> list:
     return [table[offsets[i] : offsets[i + 1]].tobytes() for i in range(len(offsets) - 1)]
 
 
-def mapped_back(cand, src, blocks) -> list:
+def mapped_back(cand, src, blocks, offsets=None, circular=None) -> list:
     """The genome-space blocks of the candidates found on a consensus arena
     whose fragments all lie on gapless blocks: each candidate fragment
     (consensus sequence, start, length, strand) stands for every fragment
     of its source block over the same columns, on the strand of both; a
-    candidate that stands for fewer than two fragments gives nothing.
-    ``cand``: (offsets, seq, start, length, strand) arrays; ``src``: the
-    source block of each consensus sequence. One ``block_keys`` key a
-    block."""
+    candidate that stands for fewer than two fragments gives nothing. Over
+    a source fragment that crosses the origin of a circular sequence, a
+    start that falls past the sequence's end lies that far past the
+    origin: the sequence's length is taken off it. ``cand``: (offsets,
+    seq, start, length, strand) arrays; ``src``: the source block of each
+    consensus sequence; ``offsets``, ``circular``: the genomes' sequences
+    (None for linear sequences only). One ``block_keys`` key a block."""
     offs, cseq, cstart, clen, cori = (np.asarray(a, np.int64) for a in cand)
     src = np.asarray(src, np.int64)
     nfr = np.array([len(blocks[b][0][0]) for b in src], np.int64)
@@ -96,6 +100,11 @@ def mapped_back(cand, src, blocks) -> list:
     fo = s_ori[sfi]
     start = np.where(fo == 1, s_start[sfi] + st, s_start[sfi] + s_len[sfi] - st - ln)
     ori = fo * np.where(cori[rep] == -1, -1, 1)
+    if circular is not None:
+        seq = s_seq[sfi]
+        seq_len = np.diff(np.asarray(offsets, np.int64))[seq]
+        start = np.where(np.asarray(circular, bool)[seq] & (start >= seq_len),
+                         start - seq_len, start)
     # per candidate: its expanded fragments' bounds, and whether it is kept
     cid = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
     per_frag = np.bincount(cid, weights=counts, minlength=len(offs) - 1).astype(np.int64)

@@ -18,6 +18,9 @@ TINY_CONFIG = {
     "reduced": [], "assumed": [], "chips": 1, "mesh": 1,
     "n_genomes": 4, "genome_length": 6000, "circular": False, "pipeline": {},
 }
+# 4 genomes of two circular chromosomes, their origins turned
+TINY_CIRCULAR = dict(TINY_CONFIG, chromosome_lengths=[4000, 2000], circular=True,
+                     rotate_origins=True)
 TINY_TRAFFIC = {"sub_rate": 0.01, "indel_rate": 0.002, "n_inversions": 1}
 
 
@@ -28,15 +31,17 @@ def pytest_configure(config):
 @pytest.fixture
 def tiny_root(tmp_path):
     """A checkout's worth of the benchmark in ``tmp_path``: BENCHMARK.json
-    and portbench/, with a tiny configuration (``tiny``, and ``tiny4`` on a
-    4-shard mesh) and traffic mix (``tinymix``) added as files, and cells
-    ``tiny.tinymix`` and ``tiny4.tinymix`` that report every metric."""
+    and portbench/, with a tiny configuration (``tiny``, ``tiny4`` on a
+    4-shard mesh, and ``tinyc`` of circular genomes) and traffic mix
+    (``tinymix``) added as files, and cells ``tiny.tinymix``,
+    ``tiny4.tinymix`` and ``tinyc.tinymix`` that report every metric."""
     shutil.copytree(REPO / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__", "tests"))
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     cells = []
-    for name, mesh in (("tiny", 1), ("tiny4", 4)):
-        cfg = dict(TINY_CONFIG, name=name, mesh=mesh)
+    for name, base, mesh in (("tiny", TINY_CONFIG, 1), ("tiny4", TINY_CONFIG, 4),
+                             ("tinyc", TINY_CIRCULAR, 1)):
+        cfg = dict(base, name=name, mesh=mesh)
         (tmp_path / "portbench" / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         bench["configs"].append({"name": name, "source": "test", "reduced": [],
                                  "file": f"portbench/configs/{name}.json", "why": "test"})
@@ -46,5 +51,8 @@ def tiny_root(tmp_path):
     (tmp_path / "portbench" / "traffic" / "tinymix.json").write_text(json.dumps(TINY_TRAFFIC))
     for m in bench["per_layer"]:
         m["workloads"] = m.get("workloads", []) + cells
+    for m in bench["end_to_end"]:
+        if "workloads" in m:
+            m["workloads"] += cells
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     return tmp_path

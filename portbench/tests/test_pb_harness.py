@@ -110,11 +110,15 @@ FAULTS = [
     ("fewer_rounds", "tiny.tinymix", "reseed_short_of_kmin"),
     ("cons_base", "tiny.tinymix", "consensus_differing"),
     ("no_deconseq", "tiny.tinymix", "mapped_missing"),
+    ("no_halo", "tinyc.tinymix", "anchor_groups_differing"),
+    ("no_origin_join", "tinyc.tinymix", "joinable_pairs"),
+    ("fragment", "tinyc.tinymix", "partition_errors"),
 ]
 
 
 @pytest.mark.parametrize("plant,cell,caught_by", FAULTS,
-                         ids=[f[0] or "clean" for f in FAULTS])
+                         ids=[(f[0] or "clean") + ("-circular" if f[1] == "tinyc.tinymix" else "")
+                              for f in FAULTS])
 def test_check_fails_every_planted_fault(tiny_root, plant, cell, caught_by):
     line = _run(tiny_root, cell, plant=plant, min_builds=2)
     checks = {k: v["value"] for k, v in line["checks"].items()}

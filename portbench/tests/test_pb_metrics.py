@@ -43,6 +43,32 @@ def test_reader_sums(name, want):
     assert harness.metric_reader(REPO, name)(_record()) == pytest.approx(want)
 
 
+def test_a_role_twin_reads_as_its_base():
+    rec = dict(_record(), walls=[4.0, 5.0])
+    for name in ("anchors_s", "reseed_cons_s", "sw_pairs", "device_idle"):
+        assert (harness.metric_reader(REPO, f"{name}.setup")(rec)
+                == harness.metric_reader(REPO, name)(rec))
+    assert harness.metric_reader(REPO, "build_s.setup")(rec) == pytest.approx(4.5)
+
+
+def test_every_cell_reports_what_its_metrics_move():
+    """Each cell reports setup_s, another end-to-end metric and a per-layer
+    one; each per-layer metric has a reader and moves an end-to-end metric
+    that every cell it lists reports."""
+    import json
+
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    cells = [w["name"] for w in bench["workloads"]]
+    e2e = {m["name"]: set(m.get("workloads", cells)) for m in bench["end_to_end"]}
+    for cell in cells:
+        have = {n for n, wl in e2e.items() if cell in wl}
+        assert "setup_s" in have and len(have) >= 2, (cell, have)
+        assert any(cell in m.get("workloads", cells) for m in bench["per_layer"]), cell
+    for m in bench["per_layer"]:
+        assert callable(harness.metric_reader(REPO, m["name"])), m["name"]
+        assert set(m.get("workloads", cells)) <= e2e[m["moves"]], m["name"]
+
+
 def test_readers_without_a_reading_return_nothing():
     rec = _record()
     assert harness.metric_reader(REPO, "sw_roofline")(rec) is None  # no kernel time
